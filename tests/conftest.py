@@ -20,3 +20,9 @@ jax.config.update("jax_platforms", "cpu")
 assert len(jax.devices()) == 8, (
     "expected 8 virtual CPU devices; a backend initialized too early: "
     f"{jax.devices()}")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skipped elsewhere")
