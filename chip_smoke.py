@@ -3,23 +3,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``ros_gpu_depthmap_fusion_tpu_torch``) at the
-operating point of ``bench.py``: 8 depth cameras at 848x480 plus 2 lidar
-streams of 8192 points into a 400x400x21 = 3,360,000-cell grid, on the raw
-depth link (``depth_link_codec="none"``). Phases, one line each:
+Drives the port (``ros_gpu_depthmap_fusion_tpu_torch``) at the operating
+point of ``bench.py``: 8 depth cameras at 848x480 plus 2 lidar streams of
+8192 points into a 400x400x21 = 3,360,000-cell grid. Phases, one line
+each:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch,
    CUDA and nvcc versions;
-2. build: compile the CUDA kernels from ``csrc/`` with nvcc;
-3. kernels: record each kernel's inputs from one frame of the engine,
-   check the kernel against its plain PyTorch twin on them (exact for
-   segreduce and compact; equal masks for flying pixels) and time both
-   (CUDA events, median of 20 runs after 3 warm-up runs);
-4. engine: 20 frames through ``add_depthmap`` / ``add_point_sequence`` /
-   ``process``; every kernel's launch counter must rise by its expected
-   count each frame; the last frame is re-run with the plain twins from
-   the same state and must give equal outputs; a small rig must give equal
-   outputs on the card and on the CPU.
+2. build: compile the CUDA kernels from ``csrc/`` with nvcc, and the
+   native host library (the depth-link encoders) with make;
+3. link (the main path): ``bench.py:120-182``'s configuration as it is
+   (p4 temporal depth link with hysteresis, delta-coded lidar, 448k
+   level-1 partials) with ``FusionEngine(cfg, "cuda", pipeline_depth=1)``,
+   24 frames then ``flush()``; every kernel's launch counter must rise by
+   its expected count each step; frame 0 must be an I-keyframe and the
+   rest p4 P-frames; the partials must stay within capacity; the last
+   frame re-run with the plain twins from the same state, and a
+   ``pipeline_depth=0`` engine on the same frames, must give equal
+   outputs; so must a small rig of this configuration on the card and on
+   the CPU;
+4. kernels: each kernel's inputs are recorded from one frame of the link
+   phase; the kernel is checked against its plain PyTorch twin on them
+   (exact) and both are timed (CUDA events, median of 20 runs after 3
+   warm-up runs);
+5. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
+   path) on the recorded frame's masked metric depth, against its twin
+   (exact in all five outputs), timed beside its twin and the engine's
+   chain (unproject, crop, cell index, quantize, level-1 segreduce), and
+   the level-2 closure against that chain;
+6. raw link: the engine on the raw depth link (``depth_link_codec="none"``,
+   768k partials: the raw series has more level-1 runs), 8 frames, with
+   the same launch, plain-twin and small-rig checks.
 
 Then one JSON line with the kernels' names, sources, launch counts, errors
 and times, the ``nvidia-smi`` line, and, last, ``{"ok": true, "device":
@@ -40,20 +54,52 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 H, W, C = 480, 848, 8
 N_LIDAR_STREAMS, LIDAR_PTS = 2, 8192
 N_STAGED = 8
-ENGINE_FRAMES = 20
-KERNEL_FRAMES = 6      # frames before the recorded one (lidar window full)
+LINK_FRAMES = 24
+RAW_FRAMES = 8
+RECORD_FRAME = 6       # the recorded step's frame (lidar window full)
 EXPECTED_LAUNCHES = {"segreduce": 2, "flying_pixels": 1, "compact": 1}
+ENGINE_KERNELS = ("segreduce", "flying_pixels", "compact")
+KERNELS = ENGINE_KERNELS + ("fused_unproject_rle",)
 REPLACES = {
     "segreduce": "ros_gpu_depthmap_fusion_tpu/ops/pallas/segreduce.py:233",
     "flying_pixels":
         "ros_gpu_depthmap_fusion_tpu/ops/pallas/flying_pixels.py:130",
     "compact": "ros_gpu_depthmap_fusion_tpu/ops/pallas/compact.py:268",
+    "fused_unproject_rle":
+        "ros_gpu_depthmap_fusion_tpu/ops/pallas/fused_unproject_rle.py:128",
 }
-SOURCES = {
-    "segreduce": "ros_gpu_depthmap_fusion_tpu_torch/csrc/segreduce.cu",
-    "flying_pixels": "ros_gpu_depthmap_fusion_tpu_torch/csrc/flying_pixels.cu",
-    "compact": "ros_gpu_depthmap_fusion_tpu_torch/csrc/compact.cu",
-}
+SOURCES = {name: f"ros_gpu_depthmap_fusion_tpu_torch/csrc/{name}.cu"
+           for name in KERNELS}
+
+
+def link_config(FusionConfig, h=H, w=W, c=C, lidar_pts=LIDAR_PTS, **kw):
+    """``bench.py:120-182``'s configuration, field for field (the small
+    rig passes its own sizes)."""
+    base = dict(
+        num_depth_streams=c, depth_height=h, depth_width=w,
+        num_point_sequences=N_LIDAR_STREAMS,
+        crop_min=(-20, -20, 0), crop_max=(20, 20, 2.5),
+        voxel_min=(-20, -20, 0), voxel_max=(20, 20, 2.5),
+        voxel_size=(0.1, 0.1, 0.12),
+        voxel_occupancy_lifetime=10,
+        rollbuffer_point_capacity=98304,
+        max_points_per_sequence=N_LIDAR_STREAMS * lidar_pts,
+        depth_link_codec="dpcm_temporal",
+        depth_codec_p4_budget=48,
+        depth_codec_hysteresis=2,
+        depth_codec_keyframe_interval=120,
+        depth_codec_quant_shift=4,
+        depth_codec_max_exceptions=8192,
+        lidar_link_quant_step=0.002,
+        lidar_link_delta=True,
+        voxelize_partials_capacity=448 * 1024,
+        voxelize_output_capacity=16384,
+        emit_raw_points=False,
+        emit_occupancy_u8=False,
+        occupancy_sparse_capacity=4096,
+    )
+    base.update(kw)
+    return FusionConfig(**base)
 
 
 def bench_config(FusionConfig, h=H, w=W, c=C, lidar_pts=LIDAR_PTS, **kw):
@@ -174,21 +220,22 @@ def cuda_ms(torch, fn, reps=20, warm=3):
     return float(np.median(times))
 
 
-def record_kernel_inputs(mods, run_frame):
-    """Run one frame with each kernel wrapper wrapped to record its
-    arguments; returns ``{name: [(args, kwargs), ...]}``."""
+def record_calls(mods, run):
+    """Run ``run()`` with each named module function wrapped to record its
+    arguments and result; returns ``{name: [(args, kwargs, result)]}``."""
     calls = {}
     patched = []
     for name, mod, attr in mods:
         orig = getattr(mod, attr)
 
         def rec(*a, _orig=orig, _name=name, **k):
-            calls.setdefault(_name, []).append((a, k))
-            return _orig(*a, **k)
+            out = _orig(*a, **k)
+            calls.setdefault(_name, []).append((a, k, out))
+            return out
         setattr(mod, attr, rec)
         patched.append((mod, attr, orig))
     try:
-        run_frame()
+        run()
     finally:
         for mod, attr, orig in patched:
             setattr(mod, attr, orig)
@@ -206,6 +253,142 @@ def max_abs_err(torch, a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def assert_outputs_equal(torch, got, ref, what):
+    for k in ref._fields:
+        if not torch.equal(getattr(got, k).cpu(), getattr(ref, k).cpu()):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def check_frame_outputs(cfg, eng, outs, what):
+    """Capacity and sanity checks of a run's outputs; returns the max
+    level-1 partials count."""
+    import torch
+    max_partials = 0
+    for f, o in enumerate(outs):
+        vp, fc = int(o.vox_partials_count), int(o.fused_count)
+        max_partials = max(max_partials, vp)
+        if vp > cfg.voxelize_partials_capacity:
+            raise AssertionError(f"{what} frame {f}: partials {vp} > "
+                                 f"{cfg.voxelize_partials_capacity}")
+        if fc >= cfg.voxelize_output_capacity:
+            raise AssertionError(f"{what} frame {f}: fused_count {fc} at cap")
+        if f >= 1 and int(o.seq_selected_count) <= 0:
+            raise AssertionError(f"{what} frame {f}: no lidar selected")
+    fp = outs[-1].fused_points
+    if fp.shape != (eng.output_capacity, 4) or not torch.isfinite(fp).all():
+        raise AssertionError(f"{what}: fused_points bad shape or non-finite")
+    n = int(outs[-1].fused_count)
+    if n <= 0 or not bool((fp[:n, 3] == 1).all()) or bool(fp[n:].any()):
+        raise AssertionError(f"{what}: bad live/padding fused rows")
+    return max_partials
+
+
+def run_engine(torch, eng, scene, intr, frames, kmods, step_tap=None,
+               record=None):
+    """Drive ``eng`` through ``frames`` frames (then ``flush()`` when
+    pipelined) through the user entry points. Every step must launch each
+    engine kernel its expected number of times. ``step_tap`` receives
+    (state before, inputs, depth_bits) of every step; ``record`` =
+    (frame, mods) records that frame's kernel calls. Returns (outputs,
+    depth_bits per output, wall ms of frames 4.. including a final
+    synchronize, per-frame host ms of process() and of the step's
+    enqueue, recorded calls)."""
+    orig_step = eng.step
+    step_ms = []
+
+    def step(inp, depth_bits=None):
+        if step_tap is not None:
+            step_tap(eng.state, inp, depth_bits)
+        before = {n: m.launches for n, m in kmods.items()}
+        t = time.perf_counter()
+        out = orig_step(inp, depth_bits)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        for n, m in kmods.items():
+            if m.launches - before[n] != EXPECTED_LAUNCHES[n]:
+                raise AssertionError(
+                    f"step launched {n} {m.launches - before[n]} times, "
+                    f"expected {EXPECTED_LAUNCHES[n]}")
+        return out
+    eng.step = step
+    outs, bits, host_ms, calls = [], [], [], {}
+    t_steady = None
+    for f in range(frames):
+        if f == 4:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        now = scene.stage(eng, intr, f)
+        t0 = time.perf_counter()
+        if record is not None and f == record[0] + eng.pipeline_depth:
+            box = []
+            calls = record_calls(record[1], lambda: box.append(
+                eng.process(now)))
+            out = box[0]
+        else:
+            out = eng.process(now)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if out is not None:
+            outs.append(out)
+            bits.append(eng.last_frame_bits)
+    if eng.pipeline_depth:
+        outs.append(eng.flush())
+        bits.append(eng.last_frame_bits)
+    eng.close()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_steady) * 1e3 / (frames - 4)
+    eng.step = orig_step
+    return outs, bits, wall, (host_ms, step_ms), calls
+
+
+def keep_last(box):
+    """A step tap that keeps the latest (state, inputs, depth_bits)."""
+    def tap(*step):
+        box[:] = [step]
+    return tap
+
+
+def replay_plain(engmod, eng, tapped):
+    """The tapped step again with the plain twins, from the same state."""
+    state, inp, bits = tapped
+    _, ref = engmod.fusion_step(state, inp, bits, cfg=eng.cfg, grid=eng.grid,
+                                output_capacity=eng.output_capacity,
+                                plain=True)
+    return ref
+
+
+def small_rig_equal(torch, engmod, cfg_fn, FusionConfig, transforms,
+                    PinholeIntrinsics, pipeline_depth, what):
+    """A small rig of a configuration: equal outputs on the card and on
+    the CPU, frame by frame; returns the last frame's depth_bits."""
+    small = cfg_fn(FusionConfig, h=48, w=64, c=2, lidar_pts=256,
+                   rollbuffer_point_capacity=2048,
+                   voxelize_partials_capacity=0,
+                   occupancy_sparse_capacity=512)
+    sm_scene = Scene(transforms, seed=1, h=48, w=64, c=2, lidar_pts=256)
+    sm_intr = PinholeIntrinsics.default_for(64, 48, fov_deg=100.0)
+    engines = [engmod.FusionEngine(small, device=d,
+                                   pipeline_depth=pipeline_depth)
+               for d in ("cuda", "cpu")]
+    outs = ([], [])
+    for f in range(6):
+        for e, o in zip(engines, outs):
+            out = e.process(sm_scene.stage(e, sm_intr, f))
+            if out is not None:
+                o.append(out)
+    for e, o in zip(engines, outs):
+        if pipeline_depth:
+            o.append(e.flush())
+        e.close()
+    if len(outs[0]) != len(outs[1]) or len(outs[1]) != 6:
+        raise AssertionError(f"{what} small rig: {len(outs[0])} and "
+                             f"{len(outs[1])} outputs of 6 frames")
+    for f, (a, b) in enumerate(zip(*outs)):
+        assert_outputs_equal(torch, a, b, f"{what} small rig frame {f} "
+                             "(card vs cpu)")
+    if int(outs[1][-1].fused_count) <= 0:
+        raise AssertionError(f"{what} small rig: nothing fused")
+    return engines[0].last_frame_bits
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -216,10 +399,12 @@ def main():
     from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
         PinholeIntrinsics)
     from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
-    from ros_gpu_depthmap_fusion_tpu_torch.ops import mask_ops, voxelize
+    from ros_gpu_depthmap_fusion_tpu_torch.ops import (
+        mask_ops, unproject, voxelize)
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
-        _build, compact, flying_pixels, segreduce)
+        _build, compact, flying_pixels, fused_unproject_rle, segreduce)
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline import engine as engmod
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import native
 
     kmods = {"segreduce": segreduce, "flying_pixels": flying_pixels,
              "compact": compact}
@@ -244,35 +429,103 @@ def main():
     info = _build.build_info()
     with open(info["log"]) as f:
         regs = [ln.strip() for ln in f if "registers" in ln]
-    print(f"[build] {time.perf_counter() - t0:.2f}s "
-          f"(compiled={info['built']}) {info['path']} | ptxas: "
-          + " ; ".join(regs), flush=True)
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.require()     # builds native/libfusionhost.so when missing
+    print(f"[build] kernels {t_kern:.2f}s (compiled={info['built']}) "
+          f"{info['path']} | native host library "
+          f"{time.perf_counter() - t0:.2f}s | ptxas: " + " ; ".join(regs),
+          flush=True)
 
-    cfg = bench_config(FusionConfig)
+    cfg = link_config(FusionConfig)
     intr = PinholeIntrinsics.default_for(W, H)
     t0 = time.perf_counter()
     scene = Scene(transforms, seed=0)
     print(f"[scene] seed 0, {N_STAGED} staged frames, "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    # -- 3. each kernel against its plain twin on the main path's inputs --
-    eng = engmod.FusionEngine(cfg, device="cuda")
-    for f in range(KERNEL_FRAMES):
-        eng.process(scene.stage(eng, intr, f))
-    calls = record_kernel_inputs(
-        [("segreduce", voxelize, "segreduce"),
-         ("flying_pixels", engmod, "filter_flying_pixels"),
-         ("compact", mask_ops, "compact_rows")],
-        lambda: eng.process(scene.stage(eng, intr, KERNEL_FRAMES)))
-    torch.cuda.synchronize()
+    # -- 3. the link: bench.py's frame, pipelined (the main path) --
+    eng = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=1)
+    encodes = []
+    encode = eng._encode
+
+    def tap_encode(pkt, depth_host, scalars):
+        t = time.perf_counter()
+        words, bits = encode(pkt, depth_host, scalars)
+        encodes.append((bits, int(pkt.buf[0]), len(words),
+                        (time.perf_counter() - t) * 1e3))
+        return words, bits
+    eng._encode = tap_encode
+    last_step = []
+    record_mods = [("segreduce", voxelize, "segreduce"),
+                   ("flying_pixels", engmod, "filter_flying_pixels"),
+                   ("compact", mask_ops, "compact_rows"),
+                   ("unproject", engmod, "unproject_depthmaps")]
+    for m in kmods.values():
+        m.launches = 0
+    outs, bits, link_ms, (host_ms, step_ms), calls = run_engine(
+        torch, eng, scene, intr, LINK_FRAMES, kmods,
+        step_tap=keep_last(last_step), record=(RECORD_FRAME, record_mods))
+    launches = {n: m.launches for n, m in kmods.items()}
+    for n in ENGINE_KERNELS:
+        if launches[n] != EXPECTED_LAUNCHES[n] * LINK_FRAMES:
+            raise AssertionError(f"link: {n} launched {launches[n]} times")
+    if len(outs) != LINK_FRAMES:
+        raise AssertionError(f"link: {len(outs)} outputs")
+    if not (isinstance(bits[0], int) and bits[0] > 0) \
+            or any(b != "p4" for b in bits[1:]):
+        raise AssertionError(f"link: frame kinds {bits}, expected an "
+                             "I-keyframe then p4 P-frames")
+    exc = [e[1] for e in encodes]
+    if max(exc) > cfg.depth_codec_max_exceptions:
+        raise AssertionError(f"link: exceptions {max(exc)}")
+    max_partials = check_frame_outputs(cfg, eng, outs, "link")
+    ref = replay_plain(engmod, eng, last_step[0])
+    assert_outputs_equal(torch, outs[-1], ref, "link last frame vs the "
+                         "plain-twin step")
+    del last_step[:]
+    sync = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=0)
+    s_outs, s_bits, sync_ms, _, _ = run_engine(torch, sync, scene, intr,
+                                               LINK_FRAMES, kmods)
+    if s_bits != bits:
+        raise AssertionError(f"link: sync frame kinds {s_bits} != {bits}")
+    for f, (a, b) in enumerate(zip(outs, s_outs)):
+        assert_outputs_equal(torch, a, b, f"link frame {f} pipelined vs "
+                             "pipeline_depth=0")
+    del sync, s_outs
+    sm_bits = small_rig_equal(torch, engmod, link_config, FusionConfig,
+                              transforms, PinholeIntrinsics, 1, "link")
+    enc_ms = [e[3] for e in encodes[:LINK_FRAMES]]
+    pkt_kb = [4 * e[2] / 1e3 for e in encodes[:LINK_FRAMES]]
+    n_i = sum(1 for b in bits if b != "p4")
+    print(f"[link] bench.py:120-182 as written, pipeline_depth=1, "
+          f"{LINK_FRAMES} frames + flush: {link_ms:.2f} ms/frame "
+          f"(frames 4.., ends with a synchronize; pipeline_depth=0: "
+          f"{sync_ms:.2f}) | host process() median "
+          f"{float(np.median(host_ms[4:])):.2f} ms (step enqueue "
+          f"{float(np.median(step_ms[4:])):.2f}), encode median "
+          f"{float(np.median(enc_ms[4:])):.2f} ms (I-frame "
+          f"{enc_ms[0]:.2f}) | I/P {n_i}/{len(bits) - n_i} (frame 0 at "
+          f"B={bits[0]}) | exceptions max {max(exc)} of "
+          f"{cfg.depth_codec_max_exceptions} | packet median "
+          f"{float(np.median(pkt_kb[1:])):.1f} KB (I {pkt_kb[0]:.1f} KB) | "
+          f"level-1 partials max {max_partials} of "
+          f"{cfg.voxelize_partials_capacity} | fused "
+          f"{int(outs[-1].fused_count)} cells, lidar selected "
+          f"{int(outs[-1].seq_selected_count)} | launches {launches} | "
+          f"native {native._LIB_PATH} | plain-twin step equal; pipelined "
+          f"== sync; small rig card == cpu (last bits {sm_bits}) | {gpu}",
+          flush=True)
+
+    # -- 4. each engine kernel against its twin on the recorded frame --
     results = {}
-    for name in ("segreduce", "flying_pixels", "compact"):
+    for name in ENGINE_KERNELS:
         kern, twin = wrappers[name]
         if len(calls.get(name, ())) != EXPECTED_LAUNCHES[name]:
             raise AssertionError(f"{name}: recorded "
                                  f"{len(calls.get(name, ()))} calls")
         errs, ms, plain_ms, shapes = [], 0.0, 0.0, []
-        for a, k in calls[name]:
+        for a, k, _ in calls[name]:
             got = kern(*a, **k)
             ref = twin(*a, **k)
             torch.cuda.synchronize()
@@ -286,95 +539,100 @@ def main():
             shapes.append("x".join(map(str, a[0].shape)))
         results[name] = dict(max_abs_err=max(errs), ms=ms,
                              plain_ms=plain_ms)
-        print(f"[kernel] {name} on {'+'.join(shapes)}: max_abs_err "
-              f"{max(errs)} | kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms "
-              f"per frame ({len(calls[name])} call(s)) | {gpu}", flush=True)
-    del eng, calls
+        print(f"[kernel] {name} on {'+'.join(shapes)} (link frame "
+              f"{RECORD_FRAME}): max_abs_err {max(errs)} | kernel "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms per frame "
+              f"({len(calls[name])} call(s)) | {gpu}", flush=True)
 
-    # -- 4. the engine: 20 frames through the user entry points --
-    eng = engmod.FusionEngine(cfg, device="cuda")
+    # -- 5. kernel 4, the fused front, on the recorded frame --
+    (depth_u16, k_intr, k_tfw, k_tfc, scale), _, _ = calls["unproject"][0]
+    fp_mask = calls["flying_pixels"][0][2].reshape(depth_u16.shape)
+    depth_masked = depth_u16 * fp_mask
+    depth_m = (depth_u16.to(torch.float32) * float(scale)
+               * fp_mask.to(torch.float32)).contiguous()
+    grid, cap = eng.grid, cfg.voxelize_partials_capacity
+    fargs = (depth_m, k_intr, k_tfw, k_tfc, grid, cfg.crop_min,
+             cfg.crop_max, cap)
+    fused_unproject_rle.launches = 0
+    got = fused_unproject_rle.unproject_voxelize_l1(*fargs)
+    torch.cuda.synchronize()
+    launches["fused_unproject_rle"] = fused_unproject_rle.launches
+    ref = fused_unproject_rle.unproject_voxelize_l1_plain(*fargs)
+    err = max_abs_err(torch, got, ref)
+    if err != 0.0:
+        raise AssertionError(f"fused_unproject_rle: kernel != twin, max abs "
+                             f"err {err} (exact required)")
+
+    def chain():
+        _, pw, pc, m = unproject.unproject_depthmaps(
+            depth_masked, k_intr, k_tfw, k_tfc, scale)
+        n = pw.shape[0] * pw.shape[1]
+        pts = pw.reshape(n, 4)
+        m = mask_ops.crop_points(pc.reshape(n, 4), m.reshape(n),
+                                 cfg.crop_min, cfg.crop_max)
+        key, vals = voxelize._partial_rows(
+            pts, grid.cell_index_clamped(pts[:, :3]), m, grid.num_cells,
+            grid)
+        return segreduce.segreduce(key, vals, cap, grid.num_cells,
+                                   force_break=voxelize.LEVEL1_FORCE_BREAK), m
+    (ck, cs, cc, ct), cm = chain()
+
+    def level2(keys, sums, count):
+        tot = torch.zeros((grid.num_cells + 1, 4), dtype=torch.float64,
+                          device=keys.device)
+        live = torch.arange(keys.shape[0], device=keys.device) < count
+        tot.index_add_(0, torch.where(live, keys, grid.num_cells).long(),
+                       sums.double())
+        return tot[:grid.num_cells]
+    lf, lc = level2(got[0], got[1], got[2]), level2(ck, cs, cc)
+    cells_differ = int(((lf[:, 3] > 0) != (lc[:, 3] > 0)).sum())
+    same = lf[:, 3] == lc[:, 3]
+    counts_differ = int((~same).sum())
+    moved = int((lf[:, 3] - lc[:, 3]).abs().sum()) // 2
+    sum_err = float((lf[same, :3] - lc[same, :3]).abs().max())
+    valid_diff = int(got[4]) - int(cm.sum())
+    f_ms = cuda_ms(torch, lambda: fused_unproject_rle.unproject_voxelize_l1(
+        *fargs))
+    f_plain_ms = cuda_ms(
+        torch, lambda: fused_unproject_rle.unproject_voxelize_l1_plain(
+            *fargs))
+    chain_ms = cuda_ms(torch, chain)
+    results["fused_unproject_rle"] = dict(max_abs_err=err, ms=f_ms,
+                                          plain_ms=f_plain_ms)
+    shape = "x".join(map(str, depth_m.shape))
+    print(f"[fused] unproject_voxelize_l1 on {shape} (link frame "
+          f"{RECORD_FRAME}, masked metric "
+          f"depth), capacity {cap}: max_abs_err {err} in all five outputs | "
+          f"runs {int(got[3])} (chain's level 1: {int(ct)}), valid points "
+          f"{int(got[4])} | kernel {f_ms:.4f} ms vs plain {f_plain_ms:.4f} "
+          f"ms vs the engine's chain {chain_ms:.4f} ms | level-2 closure "
+          f"vs the chain: {cells_differ} cells differ in occupancy, "
+          f"{counts_differ} in count ({moved} points changed cell), max sum "
+          f"diff {sum_err:.1f} quantization steps where counts agree, "
+          f"valid-count diff {valid_diff} | launches "
+          f"{launches['fused_unproject_rle']} | {gpu}", flush=True)
+    del calls, eng, outs, got, ref
+
+    # -- 6. the raw link (PR 1's engine phase, fewer frames) --
+    raw = bench_config(FusionConfig)
+    eng = engmod.FusionEngine(raw, device="cuda")
     for m in kmods.values():
         m.launches = 0
-    frame_ms, outs = [], []
-    for f in range(ENGINE_FRAMES):
-        before = {n: m.launches for n, m in kmods.items()}
-        t0 = time.perf_counter()
-        now = scene.stage(eng, intr, f)
-        if f < ENGINE_FRAMES - 1:
-            out = eng.process(now)
-        else:  # last frame: keep its inputs and the state before it
-            state_before = eng.state
-            inp = eng.upload(now)
-            out = eng.step(inp)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        for n, m in kmods.items():
-            if m.launches - before[n] != EXPECTED_LAUNCHES[n]:
-                raise AssertionError(
-                    f"frame {f}: {n} launched {m.launches - before[n]} "
-                    f"times, expected {EXPECTED_LAUNCHES[n]}")
-        outs.append(out)
-    launches = {n: m.launches for n, m in kmods.items()}
-
-    last = outs[-1]
-    max_partials = 0
-    for f, o in enumerate(outs):
-        vp, fc = int(o.vox_partials_count), int(o.fused_count)
-        max_partials = max(max_partials, vp)
-        if vp > cfg.voxelize_partials_capacity:
-            raise AssertionError(f"frame {f}: partials {vp} overflow")
-        if fc >= cfg.voxelize_output_capacity:
-            raise AssertionError(f"frame {f}: fused_count {fc} at cap")
-        if f >= 1 and int(o.seq_selected_count) <= 0:
-            raise AssertionError(f"frame {f}: no lidar points selected")
-    fp = last.fused_points
-    if fp.shape != (eng.output_capacity, 4) or not torch.isfinite(fp).all():
-        raise AssertionError("fused_points: bad shape or non-finite")
-    n = int(last.fused_count)
-    if not bool((fp[:n, 3] == 1).all()) or bool(fp[n:].any()):
-        raise AssertionError("fused_points: bad live/padding rows")
-
-    # the last frame again with the plain twins, from the same state
-    _, ref = engmod.fusion_step(state_before, inp, cfg=cfg, grid=eng.grid,
-                                output_capacity=eng.output_capacity,
-                                plain=True)
-    for k in ("occupancy_bits", "occupancy_sparse_idx",
-              "occupancy_sparse_words", "occupancy_sparse_count",
-              "occupancy_sparse_true", "fused_count", "raw_count",
-              "seq_selected_count", "fused_points", "vox_partials_count"):
-        if not torch.equal(getattr(last, k), getattr(ref, k)):
-            raise AssertionError(f"last frame: {k} differs from the "
-                                 "plain-twin step")
-
-    # a small rig: the card gives the CPU's outputs, bit for bit
-    small = bench_config(FusionConfig, h=48, w=64, c=2, lidar_pts=256,
-                         rollbuffer_point_capacity=2048,
-                         voxelize_partials_capacity=0,
-                         occupancy_sparse_capacity=512)
-    sm_scene = Scene(transforms, seed=1, h=48, w=64, c=2, lidar_pts=256)
-    sm_intr = PinholeIntrinsics.default_for(64, 48, fov_deg=100.0)
-    e_gpu = engmod.FusionEngine(small, device="cuda")
-    e_cpu = engmod.FusionEngine(small, device="cpu")
-    for f in range(4):
-        o_gpu = e_gpu.process(sm_scene.stage(e_gpu, sm_intr, f))
-        o_cpu = e_cpu.process(sm_scene.stage(e_cpu, sm_intr, f))
-        for k in o_cpu._fields:
-            if not torch.equal(getattr(o_gpu, k).cpu(), getattr(o_cpu, k)):
-                raise AssertionError(f"small rig frame {f}: {k} differs "
-                                     "between the card and the CPU")
-    if int(o_cpu.fused_count) <= 0:
-        raise AssertionError("small rig: nothing fused")
-
-    steady = frame_ms[4:]
-    print(f"[engine] {ENGINE_FRAMES} frames of {C}x{W}x{H} + "
-          f"{N_LIDAR_STREAMS}x{LIDAR_PTS} lidar into "
-          f"{eng.grid.num_cells} cells: {float(np.median(steady)):.2f} "
-          f"ms/frame median (min {min(steady):.2f}, max {max(steady):.2f}; "
-          f"staging + upload + step + synchronize, frames 4..) | "
-          f"fused {n} cells, level-1 partials max {max_partials} of "
-          f"{cfg.voxelize_partials_capacity}, "
-          f"lidar selected {int(last.seq_selected_count)}, sparse blocks "
-          f"{int(last.occupancy_sparse_true)} | launches {launches} | "
+    last_step = []
+    outs, _, raw_ms, _, _ = run_engine(
+        torch, eng, scene, intr, RAW_FRAMES, kmods,
+        step_tap=keep_last(last_step))
+    raw_launches = {n: m.launches for n, m in kmods.items()}
+    raw_partials = check_frame_outputs(raw, eng, outs, "raw")
+    ref = replay_plain(engmod, eng, last_step[0])
+    assert_outputs_equal(torch, outs[-1], ref, "raw last frame vs the "
+                         "plain-twin step")
+    small_rig_equal(torch, engmod, bench_config, FusionConfig, transforms,
+                    PinholeIntrinsics, 0, "raw")
+    print(f"[raw] depth_link_codec='none', {RAW_FRAMES} frames: "
+          f"{raw_ms:.2f} ms/frame (frames 4.., ends with a synchronize) | "
+          f"level-1 partials max {raw_partials} of "
+          f"{raw.voxelize_partials_capacity} | launches {raw_launches} | "
           f"plain-twin step equal; small rig card == cpu | {gpu}",
           flush=True)
 
@@ -383,7 +641,9 @@ def main():
                     max_abs_err=results[name]["max_abs_err"],
                     ms=results[name]["ms"],
                     plain_ms=results[name]["plain_ms"])
-               for name in ("segreduce", "flying_pixels", "compact")]
+               for name in KERNELS]
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError(f"a kernel was not launched: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

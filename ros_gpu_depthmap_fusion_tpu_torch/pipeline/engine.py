@@ -8,7 +8,7 @@ Per frame, in the reference's order (``processDepthmaps``,
     3. expire old sequences              (cpp:185)
     4. select the aggregation timespan   (cpp:194)
     5. gather + transform the selection  (cpp:199-203)
-    6. unproject depth maps              (cpp:226)
+    6. decode the depth link; unproject  (cpp:226)
     7. flying-pixel filter               (cpp:234)  kernel 2
     8. crop                              (cpp:241)
     9. voxelize (average)                (cpp:259-288)  kernel 1, twice
@@ -24,10 +24,16 @@ Every tensor of a step lives on the engine's device and the step never
 waits for it: a frame's only host -> device traffic is one packet copy
 from pinned memory, and outputs stay on the device until the caller reads
 them. The state is never modified in place; each step returns a new one.
+
+The host side encodes the depth link with the native encoders
+(:mod:`utils.native`) and, with ``pipeline_depth=1``, encodes and copies
+frame k on a worker thread and a side CUDA stream while the device runs
+frame k-1.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -36,6 +42,8 @@ import torch
 from ros_gpu_depthmap_fusion_tpu_torch.core import timeutil
 from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
 from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
+from ros_gpu_depthmap_fusion_tpu_torch.ops.depth_codec import (
+    B_BUCKETS, decode_depth, decode_depth_p4, decode_depth_temporal)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels.flying_pixels import (
     filter_flying_pixels, filter_flying_pixels_plain)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.mask_ops import crop_points
@@ -51,6 +59,7 @@ from ros_gpu_depthmap_fusion_tpu_torch.pipeline.packet import (
     HostPacket, PacketLayout, unpack_packet)
 from ros_gpu_depthmap_fusion_tpu_torch.state import rollbuffer as rbmod
 from ros_gpu_depthmap_fusion_tpu_torch.state.rollbuffer import RollBuffer
+from ros_gpu_depthmap_fusion_tpu_torch.utils import native
 
 
 class EngineState(NamedTuple):
@@ -58,6 +67,10 @@ class EngineState(NamedTuple):
     rollbuffer: RollBuffer
     historic_occupancy: torch.Tensor   # [num_cells] int32
     frame_index: torch.Tensor          # 0-d int32
+    # previous frame's quantized depth series (holes = 0), the P-frame
+    # prediction of the temporal link codec: [C, H, W] int32 u16 values
+    # when cfg.depth_link_codec == "dpcm_temporal", else a [1, 1, 1] stub
+    prev_depth_q: torch.Tensor
 
 
 class SequenceBatch(NamedTuple):
@@ -73,7 +86,9 @@ class SequenceBatch(NamedTuple):
 
 
 class FrameInputs(NamedTuple):
-    depth: torch.Tensor        # [C, H, W] u16 values (any integer dtype)
+    # [C, H, W] u16 values (any integer dtype) on the raw link, else the
+    # codec's EncodedDepth / EncodedDepthP4 (ops/depth_codec.py)
+    depth: "torch.Tensor | tuple"
     intrinsics: torch.Tensor   # [C, 4] (fx, fy, cx, cy)
     tf_world: torch.Tensor     # [C, 4, 4] world <- camera
     tf_crop: torch.Tensor      # [C, 4, 4] crop <- camera
@@ -112,18 +127,15 @@ class FrameOutputs(NamedTuple):
 
 def check_supported(cfg: FusionConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration outside the
-    port's current slice (homogeneous rig, raw depth link, split-domain
-    RLE average voxelize), naming the config field."""
+    port's current slice (homogeneous rig; raw or coded depth link;
+    split-domain RLE average voxelize), naming the config field."""
     if cfg.is_heterogeneous:
         raise NotImplementedError(
             "stream_shapes: heterogeneous rigs are not ported yet")
-    if cfg.depth_link_codec != "none":
+    if cfg.depth_link_codec not in ("none", "dpcm", "dpcm_temporal"):
         raise NotImplementedError(
-            f"depth_link_codec={cfg.depth_link_codec!r}: the depth-link "
-            "codecs are not ported yet; use depth_link_codec='none'")
-    if cfg.lidar_link_delta:
-        raise NotImplementedError(
-            "lidar_link_delta: delta-coded lidar staging is not ported yet")
+            f"depth_link_codec={cfg.depth_link_codec!r}: the link is "
+            "'none', 'dpcm' or 'dpcm_temporal'")
     for field, bad in (("emit_raw_points", cfg.emit_raw_points),
                        ("enable_voxel_filter", not cfg.enable_voxel_filter),
                        ("voxel_enable_average",
@@ -141,6 +153,10 @@ def check_supported(cfg: FusionConfig) -> None:
 
 def initial_state(cfg: FusionConfig, grid: VoxelGrid, device) -> EngineState:
     """Empty state on ``device`` (no default: the caller names it)."""
+    prev_q_shape = ((cfg.num_depth_streams, cfg.depth_height,
+                     cfg.depth_width)
+                    if cfg.depth_link_codec == "dpcm_temporal"
+                    else (1, 1, 1))
     return EngineState(
         rollbuffer=rbmod.make_rollbuffer(
             cfg.rollbuffer_point_capacity, cfg.rollbuffer_seq_capacity,
@@ -148,14 +164,16 @@ def initial_state(cfg: FusionConfig, grid: VoxelGrid, device) -> EngineState:
         historic_occupancy=torch.zeros((grid.num_cells,), dtype=torch.int32,
                                        device=device),
         frame_index=torch.zeros((), dtype=torch.int32, device=device),
+        prev_depth_q=torch.zeros(prev_q_shape, dtype=torch.int32,
+                                 device=device),
     )
 
 
 def state_from_jax_numpy(d: dict, device) -> EngineState:
     """An :class:`EngineState` on ``device`` from numpy arrays of the JAX
     engine's state: the ``RollBuffer`` fields by name plus
-    ``historic_occupancy`` and ``frame_index`` (other keys, such as the
-    depth codec's ``prev_depth_q``, are ignored)."""
+    ``historic_occupancy``, ``frame_index`` and ``prev_depth_q`` (a
+    ``[1, 1, 1]`` stub when absent)."""
     def t(name, dtype):
         return torch.from_numpy(np.array(d[name])).to(device=device,
                                                       dtype=dtype)
@@ -164,29 +182,59 @@ def state_from_jax_numpy(d: dict, device) -> EngineState:
                  seq_tf_move=torch.float32)
     rb = RollBuffer(**{f: t(f, kinds.get(f, torch.int32))
                        for f in RollBuffer._fields})
+    prev_q = (t("prev_depth_q", torch.int32) if "prev_depth_q" in d
+              else torch.zeros((1, 1, 1), dtype=torch.int32, device=device))
     return EngineState(rollbuffer=rb,
                        historic_occupancy=t("historic_occupancy",
                                             torch.int32),
-                       frame_index=t("frame_index", torch.int32))
+                       frame_index=t("frame_index", torch.int32),
+                       prev_depth_q=prev_q)
 
 
 def state_to_numpy(state: EngineState) -> dict:
-    """Inverse of :func:`state_from_jax_numpy` (waits for the device)."""
+    """Inverse of :func:`state_from_jax_numpy` (waits for the device);
+    ``prev_depth_q`` comes back as u16, the JAX state's type."""
     d = {f: getattr(state.rollbuffer, f).cpu().numpy()
          for f in RollBuffer._fields}
     d["historic_occupancy"] = state.historic_occupancy.cpu().numpy()
     d["frame_index"] = state.frame_index.cpu().numpy()
+    d["prev_depth_q"] = state.prev_depth_q.cpu().numpy().astype(np.uint16)
     return d
+
+
+def decode_link(state: EngineState, depth, depth_bits, cfg: FusionConfig):
+    """The frame's ``[C, H, W]`` depth from its link payload, and the next
+    P-frame prediction (``state.prev_depth_q`` unless the frame updates
+    it). ``depth_bits``: ``None`` raw, ``"p4"``, ``B > 0`` an I-frame,
+    ``-B`` a classic P-frame (JAX ``pipeline/engine.py:233-254``)."""
+    h, w = cfg.depth_height, cfg.depth_width
+    shift = cfg.depth_codec_quant_shift
+    prev_q = state.prev_depth_q
+    if depth_bits is None:
+        return depth, prev_q
+    if depth_bits == "p4":
+        return decode_depth_p4(depth, prev_q, h, w,
+                               cfg.depth_codec_p4_budget, shift)
+    if depth_bits > 0:
+        if cfg.depth_link_codec == "dpcm_temporal":
+            return decode_depth(depth, h, w, depth_bits, shift,
+                                return_series=True)
+        return decode_depth(depth, h, w, depth_bits, shift), prev_q
+    return decode_depth_temporal(depth, prev_q, h, w, -depth_bits, shift)
 
 
 def fusion_step(state: EngineState,
                 inp: FrameInputs,
+                depth_bits=None,
                 *,
                 cfg: FusionConfig,
                 grid: VoxelGrid,
                 output_capacity: int,
                 plain: bool = False):
     """One frame step; returns ``(new_state, FrameOutputs)``.
+
+    ``depth_bits`` names the depth payload of ``inp.depth`` (see
+    :func:`decode_link`).
 
     ``plain=True`` runs the plain PyTorch twins of the three kernels even
     on CUDA tensors (the on-card reference the kernels are checked
@@ -218,11 +266,12 @@ def fusion_step(state: EngineState,
     seq_world, seq_crop, seq_valid, _ = rbmod.gather_selection(
         rb, sel, inp.tf_world_move, inp.tf_crop_move, sel_cap)
 
-    # -- 6. unproject; 7. flying-pixel filter (camera frame) --
+    # -- 6. decode the link, unproject; 7. flying-pixel filter --
+    depth, prev_depth_q = decode_link(state, inp.depth, depth_bits, cfg)
     scale = (cfg.resolved_depth_scales if cfg.depth_scales is not None
              else cfg.depth_scale)
     pts_cam, pts_world, pts_crop, dmask = unproject_depthmaps(
-        inp.depth, inp.intrinsics, inp.tf_world, inp.tf_crop, scale)
+        depth, inp.intrinsics, inp.tf_world, inp.tf_crop, scale)
     if cfg.enable_flyingpixels_filter:
         fp = filter_flying_pixels_plain if plain else filter_flying_pixels
         dmask = fp(pts_cam, dmask, h, w, cfg.flyingpixels_filter_size,
@@ -271,7 +320,8 @@ def fusion_step(state: EngineState,
         sc = st = torch.zeros((), dtype=torch.int32, device=dev)
 
     new_state = EngineState(rollbuffer=rb, historic_occupancy=historic,
-                            frame_index=state.frame_index + 1)
+                            frame_index=state.frame_index + 1,
+                            prev_depth_q=prev_depth_q)
     return new_state, FrameOutputs(
         fused_points=fused_points, fused_count=fused_count,
         raw_points=torch.zeros((1, 4), dtype=torch.float32, device=dev),
@@ -281,6 +331,21 @@ def fusion_step(state: EngineState,
         vox_partials_count=vox_partials,
         occupancy_sparse_idx=si, occupancy_sparse_words=sw,
         occupancy_sparse_count=sc, occupancy_sparse_true=st)
+
+
+
+
+def _quantize_into(depth: np.ndarray, quant_shift: int,
+                   out: np.ndarray) -> None:
+    """Encoder-side quantization into ``out`` (holes stay 0): the P-frame
+    prediction after an I-frame."""
+    if not quant_shift:
+        np.copyto(out, depth)
+        return
+    qmax = 65535 >> quant_shift
+    q = (depth.astype(np.int32) + (1 << (quant_shift - 1))) >> quant_shift
+    np.clip(q, 1, qmax, out=q)
+    np.copyto(out, np.where(depth == 0, 0, q).astype(np.uint16))
 
 
 # ---------------------------------------------------------------------------
@@ -294,15 +359,24 @@ class FusionEngine:
     (the clear/add/process lifecycle of gpu_depthmap_fusion.h:223-307).
 
     ``device`` has no default: ``"cuda"`` runs the hand-written kernels,
-    ``"cpu"`` their plain twins.
+    ``"cpu"`` their plain twins. A configured depth-link codec needs the
+    native host library; the engine raises at construction without it.
+
+    ``pipeline_depth=1`` overlaps frame k's encode and host -> device copy
+    (a worker thread, and a side CUDA stream for the copy) with frame k-1's
+    step: :meth:`process` then returns frame k-1's outputs (``None`` on
+    the first call) and :meth:`flush` the last frame's.
     """
 
     def __init__(self, cfg: FusionConfig, device,
                  grid: Optional[VoxelGrid] = None, pipeline_depth: int = 0):
         check_supported(cfg)
-        if pipeline_depth:
-            raise NotImplementedError(
-                "pipeline_depth=1 (overlapped upload) is not ported yet")
+        if pipeline_depth not in (0, 1):
+            raise ValueError(f"pipeline_depth is 0 or 1, got "
+                             f"{pipeline_depth!r}")
+        self._codec = cfg.depth_link_codec != "none"
+        if self._codec:
+            native.require()
         self.cfg = cfg
         self.device = torch.device(device)
         self.grid = grid or VoxelGrid.from_config(cfg)
@@ -314,18 +388,42 @@ class FusionEngine:
         self._seq_stage_cap = max(1, cfg.num_point_sequences * 4)
         self.layout = PacketLayout.for_config(
             cfg, seq_cap=self._seq_stage_cap, stage_cap=self._stage_cap)
-        # two host packets alternate, so frame k+1 stages while frame k's
-        # copy may still be in flight; the event of a packet's last copy
-        # is waited on before the packet is staged again
-        pin = self.device.type == "cuda"
-        self._packets = (HostPacket(self.layout, pin),
-                         HostPacket(self.layout, pin))
+        cuda = self.device.type == "cuda"
+        # two host packets alternate, so frame k+1 stages while frame k is
+        # encoded and copied; a packet is staged again only after the
+        # event of its last copy completed
+        self._packets = (HostPacket(self.layout, cuda),
+                         HostPacket(self.layout, cuda))
         self._copied = [None, None]
         self._pkt_flip = 0
+        # with a codec the raw depth is staged into these (double-buffered
+        # like the packets): the encoder's input
+        c, h, w = cfg.num_depth_streams, cfg.depth_height, cfg.depth_width
+        self._depth_hosts = ((np.zeros((c, h, w), np.uint16),
+                              np.zeros((c, h, w), np.uint16))
+                             if self._codec else (None, None))
+        # encoder state (touched only by the thread that encodes)
+        self._last_bits = -1        # spatial width guess
+        self._last_p_bits = -1      # classic P-frame width guess
+        self._host_prev_q = None    # encoder-side P-frame prediction
+        self._host_prev_q_spare = None
+        self._frames_since_key = 0
+        self.last_p4_spilled = 0    # p4 diagnostic: spilled groups
+        # depth_bits of the frame whose outputs the latest process() /
+        # flush() returned
+        self.last_frame_bits = None
         # live-reconfigurable filter scalars: they ride in every packet
         self.fp_threshold = cfg.flyingpixels_filter_threshold
         self.fp_max_distance = cfg.flyingpixels_max_distance
         self.ps_threshold = cfg.point_sequence_filter_threshold
+        self.pipeline_depth = pipeline_depth
+        self._pending = None        # future of the frame in flight
+        self._worker = self._copy_stream = None
+        if pipeline_depth:
+            self._worker = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix="fusion-enc")
+            if cuda:
+                self._copy_stream = torch.cuda.Stream(self.device)
         self.clear()
 
     # --- ingestion (reference addDepthmap / addPointSequence) ---
@@ -337,14 +435,21 @@ class FusionEngine:
         if event is not None:
             event.synchronize()
         self._pkt = self._packets[self._pkt_flip]
+        self._pkt.lidar_exc_count = 0
+        self._pkt.lidar_dropped = 0
+        self._depth_host = self._depth_hosts[self._pkt_flip]
         self._depth_filled = [False] * self.cfg.num_depth_streams
         self._num_seqs = 0
         self._seq_fill = 0
 
+    def _depth_slot(self, slot: int) -> np.ndarray:
+        return (self._depth_host[slot] if self._codec
+                else self._pkt.depth[slot])
+
     def add_depthmap(self, slot: int, depth_u16: np.ndarray,
                      intrinsics, tf_world: np.ndarray,
                      tf_crop: np.ndarray):
-        np.copyto(self._pkt.depth[slot], depth_u16, casting="same_kind")
+        np.copyto(self._depth_slot(slot), depth_u16, casting="same_kind")
         self._depth_filled[slot] = True
         self._pkt.intr[slot] = np.asarray(
             intrinsics.as_array() if hasattr(intrinsics, "as_array")
@@ -356,22 +461,60 @@ class FusionEngine:
                            tf_move: np.ndarray):
         """Stage one lidar packet (reference addPointSequence,
         gpu_depthmap_fusion.cpp:747-796); points past the staging capacity
-        are dropped."""
+        are dropped. With delta-coded staging a sequence is truncated at
+        its first point whose wide deltas no longer fit the exception
+        budget (counted in the packet's ``lidar_dropped``)."""
         n = min(len(points_xyz), self._stage_cap - self._seq_fill)
         if n <= 0 or self._num_seqs >= self._seq_stage_cap:
             return
         pkt = self._pkt
         qs = self.layout.seq_quant_step
-        sl = slice(self._seq_fill, self._seq_fill + n)
-        xyz = np.asarray(points_xyz[:n], np.float32)[:, :3]
-        if qs:
-            # 3 x u16 link quantization (error <= qs/2, span +-32768*qs)
-            q = xyz / qs + 32768.0
-            np.clip(np.rint(q), 0, 65535, out=q)
-            pkt.seq_points_q[sl] = q.astype(np.uint16)
+        if self.layout.lidar_delta:
+            # 3 x 4-bit zigzag deltas a point in one u16, the raw first
+            # point a sequence, wide deltas on the exception list
+            q = np.clip(np.rint(
+                np.asarray(points_xyz[:n], np.float32)[:, :3] / qs
+                + 32768.0), 0, 65535).astype(np.int32)
+            d = np.zeros((n, 3), np.int32)
+            if n > 1:
+                d[1:] = np.diff(q, axis=0)
+            wide = np.abs(d) > 7
+            fill = pkt.lidar_exc_count
+            over = fill + np.cumsum(wide.sum(axis=1)) \
+                > self.layout.lidar_exc_cap
+            if over.any():
+                n_new = int(np.argmax(over))
+                pkt.lidar_dropped += n - n_new
+                if n_new <= 0:
+                    return
+                n, q, d, wide = n_new, q[:n_new], d[:n_new], wide[:n_new]
+            sl = slice(self._seq_fill, self._seq_fill + n)
+            zz = np.where(d >= 0, d << 1, ((-d) << 1) - 1)
+            codes = np.where(wide, 0, zz).astype(np.uint16)
+            pkt.seq_points_d[sl] = (codes[:, 0] | (codes[:, 1] << 4)
+                                    | (codes[:, 2] << 8))
+            pkt.seq_first[self._num_seqs] = q[0].astype(np.uint16)
+            ri, ci = np.nonzero(wide)
+            ne = len(ri)
+            if ne:
+                pkt.lidar_exc_idx[fill:fill + ne] = \
+                    ((self._seq_fill + ri) * 3 + ci).astype(np.uint32)
+                pkt.lidar_exc_zz[fill:fill + ne] = \
+                    zz[ri, ci].astype(np.uint32)
+                pkt.lidar_exc_count = fill + ne
         else:
-            pkt.seq_points[sl, :3] = xyz
-            pkt.seq_points[sl, 3] = 1.0
+            sl = slice(self._seq_fill, self._seq_fill + n)
+            if qs:
+                # 3 x u16 link quantization (error <= qs/2, span
+                # +-32768*qs)
+                q = np.asarray(points_xyz[:n], np.float32)[:, :3] / qs \
+                    + 32768.0
+                np.clip(np.rint(q), 0, 65535, out=q)
+                pkt.seq_points_q[sl] = q.astype(np.uint16)
+            else:
+                native.stage_points_xyz(
+                    np.asarray(points_xyz[:n], np.float32),
+                    pkt.seq_points[sl])
         i = self._num_seqs
         pkt.seq_sec[i], pkt.seq_nsec[i], pkt.seq_count[i] = sec, nsec, n
         pkt.seq_tf[i] = np.asarray(tf_move, np.float32)
@@ -380,8 +523,9 @@ class FusionEngine:
 
     # --- the frame step ---
     def _finish_packet(self, now_seconds, tf_world_move, tf_crop_move):
-        """Write the frame's header into the staged packet; returns the
-        packet's words (a view of the host buffer)."""
+        """Write the frame's header into the staged packet (and zero the
+        depth of slots not added this frame); returns the scalars for
+        :meth:`HostPacket.set_scalars`."""
         now_ns = timeutil.from_seconds(now_seconds)
         now_sec, now_nsec = timeutil.decode(now_ns)
         min_ns = now_ns - timeutil.from_seconds(
@@ -391,43 +535,190 @@ class FusionEngine:
         pkt = self._pkt
         for slot, filled in enumerate(self._depth_filled):
             if not filled:
-                pkt.depth[slot] = 0
+                self._depth_slot(slot)[...] = 0
         pkt.tf_world_move[:] = eye if tf_world_move is None else tf_world_move
         pkt.tf_crop_move[:] = eye if tf_crop_move is None else tf_crop_move
-        pkt.set_scalars(0, now_sec, now_nsec, min_sec, min_nsec,
-                        self._seq_fill, self._num_seqs, self.fp_threshold,
-                        self.fp_max_distance, self.ps_threshold)
-        return pkt.view(None)
+        return (now_sec, now_nsec, min_sec, min_nsec, self._seq_fill,
+                self._num_seqs, self.fp_threshold, self.fp_max_distance,
+                self.ps_threshold)
+
+    def _encode(self, pkt: HostPacket, depth_host, scalars):
+        """Encode the depth link into the packet (JAX
+        ``pipeline/engine.py:825-925``): with ``dpcm_temporal`` a keyframe
+        every ``depth_codec_keyframe_interval`` frames, otherwise a p4
+        P-frame first, then a classic P-frame, then the spatial I-frame
+        when an encoder declines; raw depth when every width overflows
+        the exception budget. Returns ``(packet words, depth_bits)``."""
+        cfg = self.cfg
+        depth_bits, exc_count = None, 0
+        pkt_out = dict(words=pkt.tail, row_first=pkt.row_first,
+                       exc_idx=pkt.exc_idx, exc_zz=pkt.exc_zz)
+        encoded = None      # (enc, bits) of a spatial I-frame
+        if cfg.depth_link_codec == "dpcm_temporal":
+            keyframe = (self._host_prev_q is None
+                        or self._frames_since_key
+                        >= cfg.depth_codec_keyframe_interval)
+            res = res4 = None
+            if not keyframe and cfg.depth_codec_p4_budget > 0:
+                res4 = native.depth_encode_p4(
+                    depth_host, self._host_prev_q,
+                    cfg.depth_codec_p4_budget,
+                    cfg.depth_codec_max_exceptions,
+                    out=dict(flags=pkt.p4_flags, lits=pkt.p4_lits,
+                             exc_idx=pkt.exc_idx, exc_zz=pkt.exc_zz),
+                    quant_shift=cfg.depth_codec_quant_shift,
+                    hysteresis=cfg.depth_codec_hysteresis,
+                    curr_q_out=self._host_prev_q_spare)
+            elif not keyframe:
+                res = native.depth_encode_temporal(
+                    depth_host, self._host_prev_q,
+                    cfg.depth_codec_max_exceptions, allowed_bits=B_BUCKETS,
+                    out=pkt_out, guess_bits=self._last_p_bits,
+                    quant_shift=cfg.depth_codec_quant_shift,
+                    curr_q_out=self._host_prev_q_spare)
+                if res is not None and self._last_bits > 0 \
+                        and res[1] >= self._last_bits:
+                    # not narrower than the last spatial width: the
+                    # P-frame buys nothing, send an I-frame
+                    res = None
+            if res4 is not None:
+                enc4, curr_q = res4
+                exc_count = int(enc4["exc_count"])
+                self.last_p4_spilled = enc4["spilled"]
+                depth_bits = "p4"
+            elif res is not None:
+                enc, p_bits, curr_q = res
+                exc_count = int(enc["exc_count"])
+                self._last_p_bits = p_bits
+                depth_bits = -p_bits
+            if depth_bits is not None:
+                self._frames_since_key += 1
+                self._host_prev_q_spare = self._host_prev_q
+                self._host_prev_q = curr_q
+            else:
+                encoded = native.depth_encode(
+                    depth_host, cfg.depth_codec_max_exceptions,
+                    allowed_bits=B_BUCKETS, out=pkt_out,
+                    guess_bits=max(self._last_bits, -1),
+                    quant_shift=cfg.depth_codec_quant_shift)
+                if encoded is not None:
+                    self._frames_since_key = 0
+                    if self._host_prev_q is None:
+                        self._host_prev_q = np.empty(depth_host.shape,
+                                                     np.uint16)
+                        self._host_prev_q_spare = np.empty(
+                            depth_host.shape, np.uint16)
+                    # the prediction is the encoder's quantized series
+                    _quantize_into(depth_host, cfg.depth_codec_quant_shift,
+                                   self._host_prev_q)
+        elif cfg.depth_link_codec == "dpcm":
+            encoded = native.depth_encode(
+                depth_host, cfg.depth_codec_max_exceptions,
+                allowed_bits=B_BUCKETS, out=pkt_out,
+                guess_bits=self._last_bits,
+                quant_shift=cfg.depth_codec_quant_shift)
+        if encoded is not None:
+            enc, depth_bits = encoded
+            exc_count = int(enc["exc_count"])
+            self._last_bits = depth_bits
+        if depth_bits is None and self._codec:
+            # raw u16 pairs in the tail
+            flat = depth_host.reshape(-1)
+            n_pairs = flat.size // 2
+            pkt.tail[:n_pairs] = flat[: n_pairs * 2].view(np.uint32)
+            if flat.size % 2:
+                pkt.tail[n_pairs] = np.uint32(flat[-1])
+        pkt.set_scalars(exc_count, *scalars)
+        return pkt.view(depth_bits), depth_bits
+
+    def _encode_and_put(self, pkt: HostPacket, depth_host, scalars,
+                        flip: int):
+        """Encode the staged frame and copy its packet to the device.
+        Returns ``(device packet, event or None, depth_bits)``: with a side
+        copy stream the step must wait on the event first."""
+        words, depth_bits = self._encode(pkt, depth_host, scalars)
+        src = pkt.tensor[:len(words)]
+        if self.device.type != "cuda":
+            return src.clone(), None, depth_bits
+        stream = (self._copy_stream if self._copy_stream is not None
+                  else torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            packet = src.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        self._copied[flip] = event
+        return packet, (event if self._copy_stream is not None
+                        else None), depth_bits
 
     def upload(self, now_seconds: float,
                tf_world_move: Optional[np.ndarray] = None,
                tf_crop_move: Optional[np.ndarray] = None) -> FrameInputs:
-        """Finish staging the frame, copy its packet to the device (one
-        asynchronous copy from pinned memory) and return the unpacked
-        :class:`FrameInputs`; the staging area is cleared for the next
-        frame."""
-        n = len(self._finish_packet(now_seconds, tf_world_move,
-                                    tf_crop_move))
-        packet = self._pkt.tensor[:n].to(self.device, non_blocking=True,
-                                         copy=True)
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            self._copied[self._pkt_flip] = event
+        """Finish staging the frame, encode it, copy its packet to the
+        device (one asynchronous copy from pinned memory) and return the
+        unpacked :class:`FrameInputs` (its payload is named by
+        :attr:`last_frame_bits`); the staging area is cleared for the next
+        frame. The synchronous path: a pipelined engine uploads inside
+        :meth:`process`."""
+        if self.pipeline_depth:
+            raise RuntimeError("upload() is the pipeline_depth=0 path")
+        scalars = self._finish_packet(now_seconds, tf_world_move,
+                                      tf_crop_move)
+        packet, _, bits = self._encode_and_put(
+            self._pkt, self._depth_host, scalars, self._pkt_flip)
         self.clear()
-        return unpack_packet(packet, self.layout, None)
+        self.last_frame_bits = bits
+        return unpack_packet(packet, self.layout, bits)
 
-    def step(self, inp: FrameInputs) -> FrameOutputs:
+    def step(self, inp: FrameInputs, depth_bits=None) -> FrameOutputs:
         """Run the frame step on uploaded inputs and advance the state."""
         self.state, out = fusion_step(
-            self.state, inp, cfg=self.cfg, grid=self.grid,
+            self.state, inp, depth_bits, cfg=self.cfg, grid=self.grid,
             output_capacity=self.output_capacity)
         return out
 
+    def _step_put(self, fut) -> FrameOutputs:
+        packet, event, bits = fut.result()
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            # the packet was allocated on the copy stream: keep its memory
+            # from reuse until the step's work on this stream is done
+            packet.record_stream(stream)
+        self.last_frame_bits = bits
+        return self.step(unpack_packet(packet, self.layout, bits), bits)
+
     def process(self, now_seconds: float,
                 tf_world_move: Optional[np.ndarray] = None,
-                tf_crop_move: Optional[np.ndarray] = None) -> FrameOutputs:
-        """Run the staged frame: :meth:`upload` then :meth:`step`. Returns
-        device-resident outputs without waiting for the device."""
-        return self.step(self.upload(now_seconds, tf_world_move,
-                                     tf_crop_move))
+                tf_crop_move: Optional[np.ndarray] = None
+                ) -> Optional[FrameOutputs]:
+        """Run the staged frame. Returns device-resident outputs without
+        waiting for the device: this frame's, or with ``pipeline_depth=1``
+        the previous frame's (``None`` on the first call)."""
+        if not self.pipeline_depth:
+            inp = self.upload(now_seconds, tf_world_move, tf_crop_move)
+            return self.step(inp, self.last_frame_bits)
+        scalars = self._finish_packet(now_seconds, tf_world_move,
+                                      tf_crop_move)
+        prev = self._pending
+        self._pending = self._worker.submit(
+            self._encode_and_put, self._pkt, self._depth_host, scalars,
+            self._pkt_flip)
+        out = None if prev is None else self._step_put(prev)
+        # after the previous frame's encode: clear() hands its buffers to
+        # the next frame's staging
+        self.clear()
+        return out
+
+    def flush(self) -> Optional[FrameOutputs]:
+        """Run the frame in flight (pipelined mode) and return its outputs,
+        or ``None`` when nothing is pending."""
+        if self._pending is None:
+            return None
+        fut, self._pending = self._pending, None
+        return self._step_put(fut)
+
+    def close(self):
+        """Stop the pipelined engine's worker thread (after the frame in
+        flight is encoded; :meth:`flush` returns its outputs first)."""
+        if self._worker is not None:
+            self._worker.shutdown(wait=True)

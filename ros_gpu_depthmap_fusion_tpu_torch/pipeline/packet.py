@@ -16,16 +16,20 @@ offsets static per config)::
     tf_crop_move       16    f32
     seq_sec/nsec/count S each, i32
     seq_tf_move        S*16  f32
-    seq_points         P*4 f32, or ceil(P*3/2) u16 pairs when quantized
+    seq_points         P*4 f32, ceil(P*3/2) u16 pairs when quantized, or
+                       ceil(P/2) u16 pairs of 3 x 4-bit zigzag deltas when
+                       delta-coded; then (delta-coded only) seq_first
+                       ceil(S*3/2) u16 pairs and lidar_exc 2*cap u32
     row_first          ceil(rows/2)  u16 pairs
     exc_idx, exc_zz    cap_e u32 each
     tail               depth payload: raw u16 depth pairs ceil(rows*W/2)
-                       (bits None) or the codec's words
+                       (bits None), the I- or P-frame's rows*wpr(B) words,
+                       or p4's flag words then literal words
 
-The port unpacks the raw-depth payload and the f32 or u16-quantized lidar
-staging. The depth-link codecs, heterogeneous rigs and delta-coded lidar
-have their layout computed here (so offsets agree) but unpacking them
-raises ``NotImplementedError``.
+The port unpacks every payload of a homogeneous rig: raw depth, the
+codec's I-, classic P- and p4 P-frames, and f32, u16-quantized or
+delta-coded lidar staging. Heterogeneous rigs have their layout computed
+here (so offsets agree) but unpacking them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,14 +40,8 @@ import numpy as np
 import torch
 
 from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
-
-# depth-codec bit-width buckets and row word count (the JAX package's
-# ops/depth_codec.py); they size the packet's largest tail
-B_BUCKETS = (2, 3, 4, 6, 8, 12, 17)
-
-
-def words_per_row(width: int, bits: int) -> int:
-    return max(1, (width * bits + 31) // 32)
+from ros_gpu_depthmap_fusion_tpu_torch.ops.depth_codec import (
+    B_BUCKETS, EncodedDepth, EncodedDepthP4, words_per_row)
 
 
 class PacketLayout(NamedTuple):
@@ -203,26 +201,50 @@ class HostPacket:
         self.seq_nsec = i32(lo.off_seq_nsec, lo.seq_cap)
         self.seq_count = i32(lo.off_seq_count, lo.seq_cap)
         self.seq_tf = f32(lo.off_seq_tf, lo.seq_cap * 16, (lo.seq_cap, 4, 4))
-        self.seq_points = self.seq_points_q = None
-        if lo.seq_quant_step and not lo.lidar_delta:
+        self.seq_points = self.seq_points_q = self.seq_points_d = None
+        # staged per frame by the engine (delta-coded lidar only)
+        self.lidar_exc_count = 0
+        self.lidar_dropped = 0
+        if lo.lidar_delta:
+            nw = (lo.stage_cap + 1) // 2
+            self.seq_points_d = b[lo.off_seq_points:lo.off_seq_points
+                                  + nw].view(np.uint16)[: lo.stage_cap]
+            nf = (lo.seq_cap * 3 + 1) // 2
+            self.seq_first = b[lo.off_seq_first:lo.off_seq_first + nf] \
+                .view(np.uint16)[: lo.seq_cap * 3].reshape(lo.seq_cap, 3)
+            self.lidar_exc_idx = b[lo.off_lidar_exc:
+                                   lo.off_lidar_exc + lo.lidar_exc_cap]
+            self.lidar_exc_zz = b[lo.off_lidar_exc + lo.lidar_exc_cap:
+                                  lo.off_lidar_exc + 2 * lo.lidar_exc_cap]
+        elif lo.seq_quant_step:
             nw = (lo.stage_cap * 3 + 1) // 2
             self.seq_points_q = b[lo.off_seq_points:lo.off_seq_points + nw] \
                 .view(np.uint16)[: lo.stage_cap * 3].reshape(lo.stage_cap, 3)
-        elif not lo.lidar_delta:
+        else:
             self.seq_points = f32(lo.off_seq_points, lo.stage_cap * 4,
                                   (lo.stage_cap, 4))
+        # depth-codec sections (the native encoders write into these)
+        n_rf = (lo.rows + 1) // 2
+        self.row_first = b[lo.off_row_first:lo.off_row_first + n_rf].view(
+            np.uint16)[: lo.rows]
+        self.exc_idx = b[lo.off_exc_idx:lo.off_exc_idx + lo.exc_cap]
+        self.exc_zz = b[lo.off_exc_zz:lo.off_exc_zz + lo.exc_cap]
+        self.tail = b[lo.off_tail:]
+        if lo.p4_budget:
+            nf, nl = lo.p4_words()
+            self.p4_flags = self.tail[:nf]
+            self.p4_lits = self.tail[nf:nf + nl].view(np.uint8)
         self.depth = None
         if lo.groups is None:
             # raw u16 depth pairs: pixel i is the low (i even) or high
             # half of tail word i // 2, i.e. a little-endian u16 array
             nw = lo.tail_words(None)
-            self.depth = b[lo.off_tail:lo.off_tail + nw].view(np.uint16)[
+            self.depth = self.tail[:nw].view(np.uint16)[
                 : lo.rows * lo.w].reshape(lo.c, lo.h, lo.w)
 
     def set_scalars(self, exc_count, now_sec, now_nsec, roll_min_sec,
                     roll_min_nsec, num_seq_points, num_seqs,
-                    fp_threshold, fp_max_distance, ps_threshold,
-                    lidar_exc_count=0):
+                    fp_threshold, fp_max_distance, ps_threshold):
         self.buf[0] = np.uint32(exc_count)
         hdr = np.array([now_sec, now_nsec, roll_min_sec, roll_min_nsec,
                         num_seq_points, num_seqs], np.int32)
@@ -230,7 +252,7 @@ class HostPacket:
         self.buf[7:10] = np.array(
             [fp_threshold, fp_max_distance, ps_threshold],
             np.float32).view(np.uint32)
-        self.buf[10] = np.uint32(lidar_exc_count)
+        self.buf[10] = np.uint32(self.lidar_exc_count)
 
     def view(self, bits: Optional[int]) -> np.ndarray:
         return self.buf[: self.layout.total_words(bits)]
@@ -245,11 +267,75 @@ def _u16(b, off, n_words):
     return b[off:off + n_words].view(torch.int16).to(torch.int32) & 0xFFFF
 
 
-def unpack_packet(packet: torch.Tensor, layout: PacketLayout,
-                  bits: Optional[int] = None):
+def _unpack_depth(b, lo: PacketLayout, bits):
+    """The frame's depth payload: raw ``[C, H, W]`` int32 u16 values
+    (``bits`` None), an :class:`EncodedDepthP4` (``"p4"``) or an
+    :class:`EncodedDepth` (``bits`` > 0 I-frame, < 0 classic P-frame)."""
+    if bits is None:
+        return _u16(b, lo.off_tail, lo.tail_words(None))[: lo.rows * lo.w] \
+            .reshape(lo.c, lo.h, lo.w)
+    exc_idx = b[lo.off_exc_idx:lo.off_exc_idx + lo.exc_cap]
+    exc_zz = b[lo.off_exc_zz:lo.off_exc_zz + lo.exc_cap]
+    tail = b[lo.off_tail:]
+    if bits == "p4":
+        nf, nl = lo.p4_words()
+        return EncodedDepthP4(
+            flags=tail[:nf].reshape(lo.rows, nf // lo.rows),
+            lits=tail[nf:nf + nl].reshape(lo.rows, lo.p4_budget // 4),
+            exc_idx=exc_idx, exc_zz=exc_zz, exc_count=b[0])
+    wpr = words_per_row(lo.w, abs(bits))
+    row_first = _u16(b, lo.off_row_first, (lo.rows + 1) // 2)[: lo.rows]
+    return EncodedDepth(
+        words=tail[:lo.rows * wpr].reshape(lo.c, lo.h, wpr),
+        row_first=row_first.reshape(lo.c, lo.h),
+        exc_idx=exc_idx, exc_zz=exc_zz, exc_count=b[0])
+
+
+def _unpack_lidar_delta(b, lo: PacketLayout, seq_count, ends, seq_idx):
+    """Delta-coded lidar staging -> ``[P, 3]`` float32 quantized
+    coordinates.
+
+    One u16 a point of 3 x 4-bit zigzag deltas of the u16-quantized
+    coordinates, wide deltas on an exception list, each sequence's first
+    point raw. The quantized series is ``first[s] + G[i] - G[start[s]]``
+    with ``G`` the inclusive prefix sum of the deltas over the whole
+    staging (the first point of a sequence codes delta 0). The JAX
+    package's two-level matmul prefix sum and one-hot rebase become an
+    integer ``cumsum`` and gathers; the rebase is kept in float32 as
+    there, so the values agree bit for bit.
+    """
+    P, S = lo.stage_cap, lo.seq_cap
+    dev = b.device
+    codes16 = _u16(b, lo.off_seq_points, (P + 1) // 2)[:P]
+    zz = torch.stack([(codes16 >> (4 * k)) & 15 for k in range(3)], dim=-1)
+    delta = ((zz >> 1) ^ -(zz & 1)).reshape(-1)
+    le_idx = b[lo.off_lidar_exc:lo.off_lidar_exc + lo.lidar_exc_cap]
+    le_zz = b[lo.off_lidar_exc + lo.lidar_exc_cap:
+              lo.off_lidar_exc + 2 * lo.lidar_exc_cap]
+    live = (torch.arange(lo.lidar_exc_cap, dtype=torch.int32, device=dev)
+            < b[10]) & (le_idx >= 0) & (le_idx < P * 3)
+    target = torch.where(live, le_idx, P * 3).long()
+    delta = torch.cat([delta, delta.new_zeros(1)])
+    delta[target] = (le_zz >> 1) ^ -(le_zz & 1)
+    g = torch.cumsum(delta[:P * 3].reshape(P, 3), dim=0,
+                     dtype=torch.int32).to(torch.float32)
+    starts = ends - seq_count
+    g_start = torch.where((starts < P)[:, None],
+                          g[torch.clamp(starts, 0, P - 1).long()], 0.0)
+    firsts = _u16(b, lo.off_seq_first, (S * 3 + 1) // 2)[: S * 3] \
+        .reshape(S, 3).to(torch.float32)
+    base = firsts - g_start                                    # [S, 3]
+    q = torch.where((seq_idx < S)[:, None],
+                    base[torch.clamp_max(seq_idx, S - 1).long()], 0.0) + g
+    return q
+
+
+def unpack_packet(packet: torch.Tensor, layout: PacketLayout, bits=None):
     """Device-side unpack of a ``[words]`` int32 packet to
-    :class:`pipeline.engine.FrameInputs` (slices and bit views; no host
-    sync). ``depth`` is the raw ``[C, H, W]`` depth as int32 u16 values.
+    :class:`pipeline.engine.FrameInputs` (slices, bit views and small
+    integer ops; no host sync). ``bits`` names the depth payload as the
+    engine's step does: ``None`` raw, ``"p4"``, ``B > 0`` an I-frame at
+    width ``B``, ``-B`` a classic P-frame.
     """
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
         FrameInputs, SequenceBatch)
@@ -258,26 +344,22 @@ def unpack_packet(packet: torch.Tensor, layout: PacketLayout,
     if lo.groups is not None:
         raise NotImplementedError(
             "stream_shapes: heterogeneous rigs are not ported yet")
-    if bits is not None:
-        raise NotImplementedError(
-            f"depth_link_codec: the codec payload (bits={bits!r}) is not "
-            "ported yet; use depth_link_codec='none'")
-    if lo.lidar_delta:
-        raise NotImplementedError(
-            "lidar_link_delta: delta-coded lidar staging is not ported yet")
     hdr = b[1:7]
     fhdr = _f32(b, 7, 3, (3,))
-    depth = _u16(b, lo.off_tail, lo.tail_words(None))[: lo.rows * lo.w] \
-        .reshape(lo.c, lo.h, lo.w)
+    depth = _unpack_depth(b, lo, bits)
     # per-point sequence indices from the cumulative counts (staging
     # appends sequences in order): idx[i] = #ends <= i
     seq_count = b[lo.off_seq_count:lo.off_seq_count + lo.seq_cap]
     ends = torch.cumsum(seq_count, 0, dtype=torch.int32)
     pt_iota = torch.arange(lo.stage_cap, dtype=torch.int32, device=b.device)
     seq_idx = (pt_iota[:, None] >= ends[None, :]).sum(1, dtype=torch.int32)
-    if lo.seq_quant_step:
-        q = _u16(b, lo.off_seq_points, (lo.stage_cap * 3 + 1) // 2)[
-            : lo.stage_cap * 3].reshape(lo.stage_cap, 3).to(torch.float32)
+    if lo.lidar_delta or lo.seq_quant_step:
+        if lo.lidar_delta:
+            q = _unpack_lidar_delta(b, lo, seq_count, ends, seq_idx)
+        else:
+            q = _u16(b, lo.off_seq_points, (lo.stage_cap * 3 + 1) // 2)[
+                : lo.stage_cap * 3].reshape(lo.stage_cap, 3) \
+                .to(torch.float32)
         step = lo.seq_quant_step
         xyz = q * step - 32768.0 * step
         seq_points = torch.cat([xyz, torch.ones_like(xyz[:, :1])], dim=-1)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch twins on the card,
 at edge-case shapes (empty and ragged tiles, sentinels, forced breaks,
-capacity overflow, every column count, several rings). They need an
-NVIDIA GPU and nvcc and skip elsewhere; on a GPU machine run
+capacity overflow, every column count, several rings; for the fused front,
+widths below, at and above 128, clamped cells and points outside the
+crop), and small engines card == CPU on the raw and the coded link. They
+need an NVIDIA GPU and nvcc and skip elsewhere; on a GPU machine run
 
     python -m pytest -q -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
@@ -131,3 +133,104 @@ def test_engine_on_card_equals_cpu(dev):
         for k in outs[1]._fields:
             assert torch.equal(getattr(outs[0], k).cpu(),
                                getattr(outs[1], k)), k
+
+
+def _front_inputs(rng, c, h, w, dev):
+    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms as tr
+    u = np.arange(w)[None, None, :]
+    depth = (2.0 + 0.4 * np.sin(u / 9.0) + 0.01 * rng.standard_normal(
+        (c, h, w))).astype(np.float32)
+    depth[rng.random((c, h, w)) < 0.05] = 0.0
+    depth[:, :, ::17] = 30.0                        # outside the crop box
+    intr = np.tile(np.array([w * 0.7, w * 0.7, w / 2.0, h / 2.0],
+                            np.float32), (c, 1))
+    tfs = np.stack([tr.make_se3(tr.rot_z(0.7 * i) @ tr.rot_x(-1.8),
+                                np.array([np.cos(i), np.sin(i), 1.5]))
+                    for i in range(c)]).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (depth, intr, tfs))
+
+
+@pytest.mark.parametrize("c,h,w,cap,force_break,voxel", [
+    (1, 1, 1, 16, 128, 0.1),
+    (2, 16, 40, 1 << 16, 128, 0.1),
+    (3, 8, 256, 1 << 16, 0, 0.1),     # W == Wp, no forced breaks
+    (2, 16, 150, 50, 128, 0.1),       # capacity below the run count
+    (2, 9, 130, 1 << 16, 100, 0.05),  # odd force_break; clamped cells
+    (8, 48, 200, 1 << 16, 128, 0.1),
+])
+def test_fused_unproject_kernel_equals_twin(dev, c, h, w, cap, force_break,
+                                            voxel):
+    from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
+        fused_unproject_rle as m)
+    rng = np.random.default_rng(c * 1000 + w)
+    depth, intr, tfs = _front_inputs(rng, c, h, w, dev)
+    half = 100 * voxel                  # a 0.05 cell gives a 5 m grid
+    grid = VoxelGrid(lower=(-half, -half, 0.0), upper=(half, half, 2.5),
+                     cell_size=(voxel, voxel, 0.12))
+    crop = ((-8.0, -8.0, -1.0), (8.0, 8.0, 3.0))
+    before = m.launches
+    got = m.unproject_voxelize_l1(depth, intr, tfs, tfs, grid, *crop, cap,
+                                  force_break)
+    ref = m.unproject_voxelize_l1_plain(depth, intr, tfs, tfs, grid, *crop,
+                                        cap, force_break)
+    torch.cuda.synchronize()
+    assert m.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if c > 1:
+        assert 0 < int(got[4]) < c * h * w
+
+
+def test_link_engine_on_card_equals_cpu(dev):
+    """``bench.py``'s link combination (p4 with hysteresis, delta-coded
+    lidar) on a small pipelined rig: every output equal on the card and on
+    the CPU."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        FusionEngine)
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+    if not native.available():
+        pytest.skip("native library not built")
+    cfg = FusionConfig(
+        num_depth_streams=2, depth_height=24, depth_width=32,
+        num_point_sequences=1, crop_min=(-5, -5, -5), crop_max=(5, 5, 5),
+        voxel_min=(-5, -5, -5), voxel_max=(5, 5, 5),
+        voxel_size=(0.5, 0.5, 0.5), rollbuffer_point_capacity=256,
+        rollbuffer_seq_capacity=16, max_points_per_sequence=64,
+        voxel_occupancy_lifetime=3, depth_link_codec="dpcm_temporal",
+        depth_codec_quant_shift=3, depth_codec_hysteresis=2,
+        depth_codec_p4_budget=16, depth_codec_keyframe_interval=4,
+        depth_codec_max_exceptions=2048, lidar_link_quant_step=0.002,
+        lidar_link_delta=True, occupancy_sparse_capacity=64,
+        emit_occupancy_u8=True, emit_raw_points=False)
+    engines = [FusionEngine(cfg, device=dev, pipeline_depth=1),
+               FusionEngine(cfg, device="cpu", pipeline_depth=1)]
+    intr = PinholeIntrinsics.default_for(32, 24)
+    eye = np.eye(4, dtype=np.float32)
+    rng = np.random.default_rng(11)
+    u = np.arange(32)[None, :] + np.zeros((24, 1))
+    t = np.linspace(0, np.pi, 60)
+    arc = np.stack([0.8 * np.cos(t), 0.8 * np.sin(t),
+                    1 + 0.1 * np.sin(5 * t)], -1).astype(np.float32)
+    outs = ([], [])
+    for f in range(7):
+        d = (2000 + 40 * u + 6 * rng.standard_normal((2, 24, 32))) \
+            .astype(np.uint16)
+        d[:, 5:9, 3 * f:3 * f + 6] -= 300
+        for e, o in zip(engines, outs):
+            for i in range(2):
+                e.add_depthmap(i, d[i], intr, eye, eye)
+            e.add_point_sequence(arc, sec=1, nsec=f * 33000000, tf_move=eye)
+            out = e.process(1.0 + f / 30.0)
+            if out is not None:
+                o.append((out, e.last_frame_bits))
+    for e, o in zip(engines, outs):
+        o.append((e.flush(), e.last_frame_bits))
+    assert [b for _, b in outs[0]] == [b for _, b in outs[1]]
+    assert "p4" in [b for _, b in outs[0]]
+    for (a, _), (b, _) in zip(*outs):
+        for k in b._fields:
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k

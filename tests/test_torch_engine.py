@@ -127,7 +127,7 @@ def test_engine_matches_jitted_jax_within_one_step():
 def test_engine_continues_from_jax_state():
     """``state_from_jax_numpy`` starts the port from the JAX engine's
     mid-run state; the next frames match, and ``state_to_numpy`` inverts
-    it."""
+    it (``prev_depth_q`` included)."""
     kw = small_kw()
     j = JEngine(JCfg(**kw))
     t = teng.FusionEngine(TCfg(**kw), device="cpu")
@@ -143,7 +143,7 @@ def test_engine_continues_from_jax_state():
     d_state["prev_depth_q"] = np.asarray(j.state.prev_depth_q)
     t.state = teng.state_from_jax_numpy(d_state, "cpu")
     back = teng.state_to_numpy(t.state)
-    assert set(back) == set(d_state) - {"prev_depth_q"}
+    assert set(back) == set(d_state)
     for k, v in back.items():
         np.testing.assert_array_equal(v, d_state[k], err_msg=k)
     assert int(t.state.rollbuffer.num_seqs) > 0
@@ -175,7 +175,8 @@ def test_host_packet_bytes_match_jax():
     t._depth_filled[1] = False
     j._depth_filled[1] = False
     jax_process(j, now, op_by_op=False)
-    words = t._finish_packet(now, None, None)
+    words, _ = t._encode(t._pkt, t._depth_host,
+                         t._finish_packet(now, None, None))
     np.testing.assert_array_equal(words, captured[0])
 
 
@@ -183,7 +184,9 @@ def test_port_imports_no_jax():
     code = ("import sys; pre = 'jax' in sys.modules; "
             "import ros_gpu_depthmap_fusion_tpu_torch, "
             "ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine, "
-            "ros_gpu_depthmap_fusion_tpu_torch.ops.kernels._build; "
+            "ros_gpu_depthmap_fusion_tpu_torch.ops.kernels._build, "
+            "ros_gpu_depthmap_fusion_tpu_torch.ops.kernels."
+            "fused_unproject_rle; "
             "print(pre, 'jax' in sys.modules, "
             "any(m.startswith('ros_gpu_depthmap_fusion_tpu.') "
             "or m == 'ros_gpu_depthmap_fusion_tpu' for m in sys.modules))")
@@ -195,7 +198,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("depth_link_codec", "dpcm"), ("emit_raw_points", True),
+    ("depth_link_codec", "png"), ("emit_raw_points", True),
     ("stream_shapes", ((24, 32), (12, 16))), ("voxel_mean_mode", "exact"),
     ("enable_radius_filter", True), ("voxel_enable_average", False)])
 def test_unported_configs_raise(field, value):
@@ -206,6 +209,6 @@ def test_unported_configs_raise(field, value):
 def test_engine_needs_explicit_device():
     with pytest.raises(TypeError):
         teng.FusionEngine(TCfg(**small_kw()))
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
+    with pytest.raises(ValueError, match="pipeline_depth"):
         teng.FusionEngine(TCfg(**small_kw()), device="cpu",
-                          pipeline_depth=1)
+                          pipeline_depth=2)
