@@ -33,7 +33,21 @@ each:
    the level-2 closure against that chain;
 6. raw link: the engine on the raw depth link (``depth_link_codec="none"``,
    768k partials: the raw series has more level-1 runs), 8 frames, with
-   the same launch, plain-twin and small-rig checks.
+   the same launch, plain-twin and small-rig checks;
+7. mapping (``bench.py:443-537``, field for field): a fresh link engine
+   with ``eng.mapping = MappingPipeline(cfg.replace(
+   mapping_detail_min_area=-1.0), eng.grid, "cuda")``, 12 frames to fill
+   the decaying history; a warm ``process_sparse`` cycle on the last
+   frame, equal in every field to ``process_packed`` of a fresh pipeline;
+   the device segmentation on that frame's 21x400x400 grid on the card,
+   exact against the native host segmentation (centroid within 1e-4) and
+   against the CPU run (every field), timed beside native; then
+   ``AsyncMappingWorker(packed=True)`` over 60 frames paced at 30 Hz, a
+   4-frame lag drain, 3 of every 5 frames mapped, the sparse tuple
+   prefetched at enqueue: the worker must cycle, raise nothing and leave
+   a result, and every step must launch the engine kernels. The same
+   paced loop with mapping off runs before and after it, for the fused
+   frame rate without the worker.
 
 Then one JSON line with the kernels' names, sources, launch counts, errors
 and times, the ``nvidia-smi`` line, and, last, ``{"ok": true, "device":
@@ -56,6 +70,9 @@ N_LIDAR_STREAMS, LIDAR_PTS = 2, 8192
 N_STAGED = 8
 LINK_FRAMES = 24
 RAW_FRAMES = 8
+MAP_WARM_FRAMES = 12   # the decaying history (lifetime 10) at steady state
+MAP_FRAMES = 60        # the paced mapping-on loop
+MAP_LAG = 4            # frames between a step and its drain (bench.py:500)
 RECORD_FRAME = 6       # the recorded step's frame (lidar window full)
 EXPECTED_LAUNCHES = {"segreduce": 2, "flying_pixels": 1, "compact": 1}
 ENGINE_KERNELS = ("segreduce", "flying_pixels", "compact")
@@ -389,6 +406,173 @@ def small_rig_equal(torch, engmod, cfg_fn, FusionConfig, transforms,
     return engines[0].last_frame_bits
 
 
+def same(a, b, path="result"):
+    """Recursive equality of two nested results (NamedTuples,
+    dataclasses, plain objects, arrays, floats exactly)."""
+    if type(a) is not type(b):
+        raise AssertionError(f"{path}: {type(a)} != {type(b)}")
+    if isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"{path} differs")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: length {len(a)} != {len(b)}")
+        for k, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{path}[{k}]")
+    elif isinstance(a, (int, float, bool, str, type(None), np.generic)):
+        if not (a == b or (a != a and b != b)):
+            raise AssertionError(f"{path}: {a} != {b}")
+    else:
+        names = list(getattr(a, "__dict__", {}))
+        for cls in type(a).__mro__:
+            names += getattr(cls, "__slots__", ())
+        for n in names:
+            same(getattr(a, n), getattr(b, n), f"{path}.{n}")
+
+
+def sparse_of(o):
+    """A frame's sparse occupancy with its dense fallback
+    (``bench.py:457-460``)."""
+    return (o.occupancy_sparse_idx, o.occupancy_sparse_words,
+            o.occupancy_sparse_count, o.occupancy_sparse_true,
+            o.occupancy_bits)
+
+
+def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
+    """``bench.py:443-537`` on the port: warm cycle, device segmentation
+    on the card against native and the CPU, then the paced mapping-on
+    loop. Prints the ``[mapping]`` line."""
+    from collections import deque
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (
+        AsyncMappingWorker, MappingPipeline, prefetch)
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import (
+        segment)
+    eng = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=1)
+    eng.enable_mapping = True
+    mcfg = cfg.replace(mapping_detail_min_area=-1.0)
+    eng.mapping = MappingPipeline(mcfg, eng.grid, "cuda")
+    f = 0
+    for f in range(MAP_WARM_FRAMES):
+        out = eng.process(scene.stage(eng, intr, f))
+
+    # warm cycle: sparse, and packed through a fresh pipeline (tracks
+    # carry state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.mapping.process_sparse(sparse_of(out))
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_phase = eng.mapping.last_phase_ms
+    sp_true = int(out.occupancy_sparse_true)
+    sp_cap = cfg.occupancy_sparse_capacity
+    fresh = MappingPipeline(mcfg, eng.grid, "cuda")
+    same(res, fresh.process_packed(out.occupancy_bits),
+         "warm cycle: process_sparse vs process_packed")
+    if eng.mapping.backend != "host" or res.num_merged < 2:
+        raise AssertionError(f"mapping warm cycle: backend "
+                             f"{eng.mapping.backend}, {res.num_merged} ids")
+
+    # the device segmentation on this frame's grid
+    zyx = eng.grid.shape_zyx
+    occ = np.unpackbits(out.occupancy_bits.cpu().numpy(), bitorder="little",
+                        count=eng.grid.num_cells).reshape(zyx)
+    lab, objs = cfg.cc_max_labels_per_layer, cfg.max_objects
+    occ_t = torch.from_numpy(occ)
+    seg = segment(occ_t.cuda(), lab, objs)
+    torch.cuda.synchronize()
+    nat = native.segment_grid(occ, lab, objs)
+    for k in ("labels", "num_labels", "merged_of_label", "voxel_count",
+              "vmin", "vmax"):
+        if not np.array_equal(nat[k], getattr(seg, k).cpu().numpy()):
+            raise AssertionError(f"device segment on the card: {k} differs "
+                                 "from native")
+    if nat["num_merged"] != int(seg.num_merged):
+        raise AssertionError("device segment: num_merged differs from native")
+    cen_err = float(np.abs(nat["centroid"] - seg.centroid.cpu().numpy())
+                    .max())
+    if cen_err > 1e-4:
+        raise AssertionError(f"device segment: centroid off native by "
+                             f"{cen_err}")
+    t0 = time.perf_counter()
+    cpu = segment(occ_t, lab, objs)
+    cpu_s = time.perf_counter() - t0
+    for k in cpu._fields:
+        a, b = getattr(seg, k), getattr(cpu, k)
+        if not (a == b if k == "iterations" else torch.equal(a.cpu(), b)):
+            raise AssertionError(f"device segment: {k} card != cpu")
+    seg_ms = cuda_ms(torch, lambda: segment(occ_t.cuda(), lab, objs),
+                     reps=5, warm=1)
+    nat_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        native.segment_grid(occ, lab, objs)
+        nat_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def paced(f0, worker):
+        """``bench.py:478-530``: MAP_FRAMES frames paced at 30 Hz, each
+        drained MAP_LAG frames after its step; with a worker, 3 of every 5
+        frames are mapped, their sparse tuple's copy to the host started
+        at enqueue. Returns the seconds taken."""
+        lagq = deque()
+        t0 = time.perf_counter()
+        for k in range(1, MAP_FRAMES + 1):
+            out = eng.process(scene.stage(eng, intr, f0 + k))
+            done = torch.cuda.Event()
+            done.record()
+            lagq.append((done, prefetch(sparse_of(out))
+                         if worker is not None and k % 5 < 3 else None))
+            if len(lagq) > MAP_LAG:
+                done_d, sub = lagq.popleft()
+                done_d.synchronize()
+                if sub is not None:
+                    worker.submit(sub)
+            lag = t0 + k * (1.0 / 30.0) - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the same paced loop with mapping off before and after the mapping-on
+    # run: what the mapping worker costs the fused frame
+    dt_off = [paced(f, None)]
+    for m in kmods.values():
+        m.launches = 0
+    worker = AsyncMappingWorker(eng.mapping, packed=True)
+    dt_map = paced(f + MAP_FRAMES, worker)
+    launches = {n: m.launches for n, m in kmods.items()}
+    cycles = worker.cycles
+    worker.close()          # raises the worker's exception, if any
+    latest = worker.latest()
+    phase = eng.mapping.last_phase_ms
+    dt_off.append(paced(f + 2 * MAP_FRAMES, None))
+    eng.flush()
+    eng.close()
+    if cycles < 1 or latest is None:
+        raise AssertionError(f"mapping worker: {cycles} cycles")
+    for n, c in launches.items():
+        if c != EXPECTED_LAUNCHES[n] * MAP_FRAMES:
+            raise AssertionError(f"mapping loop: {n} launched {c} times in "
+                                 f"{MAP_FRAMES} frames")
+    print(f"[mapping] bench.py:443-537, {MAP_FRAMES} frames at 30 Hz "
+          f"pacing, lag {MAP_LAG}, 3 of 5 mapped: "
+          f"{MAP_FRAMES / dt_map:.2f} fused frames/s with segmentation + "
+          f"tracking, {cycles / dt_map:.2f} mapping cycles/s ({cycles} "
+          f"cycles); mapping off, before and after: "
+          f"{MAP_FRAMES / dt_off[0]:.2f} / {MAP_FRAMES / dt_off[1]:.2f} "
+          f"fused frames/s | last cycle phase_ms (d2h/segment/assemble+track) "
+          f"{tuple(round(p, 2) for p in phase)} | {len(latest.objects)} "
+          f"objects, {len(latest.tracks)} tracks | warm cycle "
+          f"{warm_ms:.1f} ms, phase_ms "
+          f"{tuple(round(p, 2) for p in warm_phase)}, {res.num_merged} "
+          f"merged ids, sparse blocks true {sp_true} of {sp_cap} "
+          f"({'dense fallback engaged' if sp_true > sp_cap else 'no fallback'})"
+          f"; sparse == packed | device segment {zyx} on the card "
+          f"{seg_ms:.2f} ms (median of 5, {seg.iterations[0]} label + "
+          f"{seg.iterations[1]} merge iterations) vs native "
+          f"{float(np.median(nat_ms)):.2f} ms (host clock), CPU torch "
+          f"{cpu_s:.1f} s; card == native (centroid within {cen_err:.1e}) "
+          f"== cpu | launches {launches} | {gpu}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -635,6 +819,10 @@ def main():
           f"{raw.voxelize_partials_capacity} | launches {raw_launches} | "
           f"plain-twin step equal; small rig card == cpu | {gpu}",
           flush=True)
+    del eng, outs, ref
+
+    # -- 7. mapping on --
+    mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

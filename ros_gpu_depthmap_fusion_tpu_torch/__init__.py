@@ -14,10 +14,15 @@ Importing the package sets ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to ``False``: the reference's exactness
 arguments assume true float32 arithmetic.
 
-Ported slice: the fused per-frame step through
+What is ported: the fused per-frame step through
 ``FusionEngine.add_depthmap`` / ``add_point_sequence`` / ``process`` for a
-homogeneous rig on the raw depth link (``depth_link_codec="none"``), with
-the split-domain RLE average voxelize.
+homogeneous rig with the split-domain RLE average voxelize, on the raw or
+the coded depth link (``"dpcm"``, ``"dpcm_temporal"`` with p4 P-frames;
+encoders in the native host library), with ``pipeline_depth`` 0 or 1; the
+mapping (``MappingPipeline``: device or native host segmentation, object
+assembly, tracking; ``AsyncMappingWorker``); and the streaming component
+(``FusionComponent``). Configurations outside it raise
+``NotImplementedError`` naming the field.
 """
 
 import torch
@@ -30,3 +35,7 @@ from ros_gpu_depthmap_fusion_tpu_torch.core import (  # noqa: E402,F401
 from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (  # noqa: E402,F401,E501
     EngineState, FrameInputs, FrameOutputs, FusionEngine, SequenceBatch,
     fusion_step, initial_state)
+from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (  # noqa: E402,F401,E501
+    AsyncMappingWorker, MappingPipeline, MappingResult)
+from ros_gpu_depthmap_fusion_tpu_torch.pipeline.component import (  # noqa: E402,F401,E501
+    FusionComponent)

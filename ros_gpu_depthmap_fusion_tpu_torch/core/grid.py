@@ -50,6 +50,14 @@ class VoxelGrid:
         gs = self.grid_size
         return gs[0] * gs[1] * gs[2]
 
+    @property
+    def shape_zyx(self) -> Tuple[int, int, int]:
+        """Shape of a dense grid laid out ``[z, y, x]`` (z = layers), the
+        reference's layer-major occupancy download
+        (gpu_depthmap_fusion.cpp:1829-1838)."""
+        gs = self.grid_size
+        return (gs[2], gs[1], gs[0])
+
     def cell_index_clamped(self, points_xyz: torch.Tensor) -> torch.Tensor:
         """World points ``[..., 3]`` -> int32 linear cell index, clamped to
         border cells (``shader/compute_voxel_coords.glsl:44-53``): the

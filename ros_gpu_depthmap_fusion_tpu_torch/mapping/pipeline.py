@@ -1,0 +1,404 @@
+"""Mapping pipeline: occupancy grid -> segmented objects -> tracks (the JAX
+package's ``mapping/pipeline.py`` on torch tensors).
+
+Segments the fused step's occupancy (native host segmentation, or
+:mod:`.segmentation` on the engine's device), then assembles objects and
+tracks them on the host, mirroring the reference's objectSegmentation() +
+objectTracking() tail (``gpu_depthmap_fusion.cpp:2552-2944``).
+
+Differences from the JAX module: the host backend raises when the native
+library is missing (JAX falls back to the device program); a sparse
+occupancy that overflowed its capacity without a dense fallback raises
+``ValueError`` (JAX: a bare ``assert``); the worker re-raises an exception
+of its thread from :meth:`AsyncMappingWorker.latest`, ``submit`` and
+``close`` (JAX's thread dies silently); and labels stay int32 on the
+device and are narrowed to u16 on the host copy.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Any, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
+from ros_gpu_depthmap_fusion_tpu_torch.mapping.objects import (
+    CCObject, build_objects)
+from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import segment
+from ros_gpu_depthmap_fusion_tpu_torch.mapping.tracking import (
+    CCObjectTrack, TrackingStats, track_objects)
+from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import occupancy_bitmap
+from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+
+
+class MappingResult(NamedTuple):
+    objects: List[CCObject]
+    tracks: List[CCObjectTrack]
+    stats: TrackingStats
+    num_merged: int
+
+
+def _host(a) -> np.ndarray:
+    """numpy view of a host tensor or array; a device tensor is copied
+    (and waited for)."""
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
+class MappingPipeline:
+    """Stateful (tracks persist across frames) mapping pipeline on
+    ``device`` (no default: the caller names it, as for the engine).
+
+    Segmentation backends (``cfg.segmentation_backend``):
+
+    - ``"device"``: :func:`.segmentation.segment` on ``device`` (a CUDA
+      device runs it on the pipeline's own stream, after the caller's
+      current stream), its results copied back in one transfer;
+    - ``"host"``: the native ``fh_segment_grid`` on the host; only the
+      occupancy bitmap crosses to the host. Raises without the native
+      library;
+    - ``"auto"`` (default): ``"host"`` when the native library loads,
+      else ``"device"``.
+    """
+
+    def __init__(self, cfg: FusionConfig, grid: VoxelGrid, device):
+        self.cfg = cfg
+        self.grid = grid
+        self.device = torch.device(device)
+        self.tracks: List[CCObjectTrack] = []
+        backend = cfg.segmentation_backend
+        if backend == "auto":
+            backend = "host" if native.available() else "device"
+        if backend == "host":
+            native.require()
+        elif backend != "device":
+            raise ValueError(f"segmentation_backend={backend!r}: 'auto', "
+                             "'host' or 'device'")
+        self.backend = backend
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        #: (d2h, segment, assemble + track) ms of the latest host-backend
+        #: cycle of process_packed / process_sparse
+        self.last_phase_ms = None
+
+    def _segment_host(self, occ: np.ndarray) -> dict:
+        # no static-shape constraint on the host: stats cover EVERY merged
+        # id (the device program clamps ids to max_objects - 1);
+        # Z * max_labels bounds the id space
+        host_cap = max(self.cfg.max_objects,
+                       occ.shape[0] * self.cfg.cc_max_labels_per_layer)
+        return native.segment_grid(occ, self.cfg.cc_max_labels_per_layer,
+                                   host_cap)
+
+    def _segment_device(self, occ: torch.Tensor) -> dict:
+        """:func:`segment` on ``self.device``; the results come back to the
+        host in one copy."""
+        caller = (torch.cuda.current_stream(self.device)
+                  if self._stream is not None else None)
+        with torch.cuda.stream(self._stream):
+            if caller is not None:
+                self._stream.wait_stream(caller)
+            seg = segment(occ.to(self.device),
+                          max_labels=self.cfg.cc_max_labels_per_layer,
+                          max_objects=self.cfg.max_objects)
+            parts = (seg.labels, seg.num_labels, seg.merged_of_label,
+                     seg.num_merged, seg.voxel_count,
+                     seg.centroid.view(torch.int32), seg.vmin, seg.vmax)
+            flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+        out, off = [], 0
+        for p in parts:
+            out.append(flat[off:off + p.numel()].reshape(p.shape))
+            off += p.numel()
+        return dict(labels=out[0].astype(np.uint16), num_labels=out[1],
+                    merged_of_label=out[2], num_merged=int(out[3]),
+                    voxel_count=out[4], centroid=out[5].view(np.float32),
+                    vmin=out[6], vmax=out[7])
+
+    def _detail_mask(self, res: dict) -> Optional[np.ndarray]:
+        """Detail-pruning mask: objects whose world-xy AABB area is below
+        the threshold get stats-only stubs. Sound for the tracking
+        consumer: the topview min-area rect is contained in the AABB, so
+        its area is <= the AABB area and every pruned object fails the
+        ``object_min_area`` gate (cpp:2776-2777) regardless."""
+        thr = self.cfg.mapping_detail_min_area
+        if thr < 0:
+            thr = self.cfg.object_min_area
+        if thr <= 0:
+            return None
+        nm = int(res["num_merged"])
+        vmin, vmax = np.asarray(res["vmin"]), np.asarray(res["vmax"])
+        n = min(nm, len(vmin))
+        cs = np.asarray(self.grid.cell_size, np.float64)
+        ext = (vmax[:n] - vmin[:n] + 1).astype(np.float64)
+        area = ext[:, 0] * cs[0] * ext[:, 1] * cs[1]
+        mask = np.zeros(nm, bool)
+        mask[:n] = (area >= thr) & (np.asarray(
+            res["voxel_count"])[:n] > 0)
+        return mask
+
+    def _unpack(self, packed: np.ndarray) -> np.ndarray:
+        z, y, x = self.grid.shape_zyx
+        return np.unpackbits(packed, bitorder="little",
+                             count=self.grid.num_cells).reshape(z, y, x)
+
+    def fetch_occupancy(self, occupancy_u8: torch.Tensor) -> np.ndarray:
+        """The binarized ``[Z, Y, X]`` occupancy on the host: packed 8 cells
+        a byte where the occupancy lives, copied, unpacked."""
+        return self._unpack(_host(occupancy_bitmap(
+            occupancy_u8[:self.grid.num_cells])))
+
+    def _host_cycle(self, t0: float, t1: float, occ: np.ndarray,
+                    dt, with_contours) -> MappingResult:
+        res = self._segment_host(occ)
+        t2 = time.perf_counter()
+        out = self._finish(res, dt, with_contours)
+        t3 = time.perf_counter()
+        self.last_phase_ms = ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                              (t3 - t2) * 1e3)
+        return out
+
+    def process_packed(self, occupancy_bits,
+                       dt: float | None = None,
+                       with_contours: bool = True) -> MappingResult:
+        """Mapping step from the fused step's packed bitmap
+        (``FrameOutputs.occupancy_bits``, a tensor on any device or a host
+        array): one copy to the host."""
+        t0 = time.perf_counter()
+        packed = _host(occupancy_bits)
+        t1 = time.perf_counter()
+        occ = self._unpack(packed)
+        if self.backend == "host":
+            return self._host_cycle(t0, t1, occ, dt, with_contours)
+        return self.process(torch.from_numpy(occ.reshape(-1)), dt,
+                            with_contours)
+
+    def process_sparse(self, sparse,
+                       dt: float | None = None,
+                       with_contours: bool = True) -> MappingResult:
+        """Mapping step from the fused step's sparse occupancy
+        (``FrameOutputs.occupancy_sparse_*``): ``sparse`` is ``(block_idx,
+        words, count, true_count[, dense_bits_fallback])``, tensors on any
+        device or host arrays. Only the sparse blocks cross to the host;
+        when the blocks overflowed their capacity (``true_count >
+        capacity``) the dense fallback is processed instead, and without
+        one this raises ``ValueError``."""
+        t0 = time.perf_counter()
+        idx, words = _host(sparse[0]), _host(sparse[1])
+        cnt = int(_host(sparse[2]))
+        true_cnt = int(_host(sparse[3]))
+        cap = int(idx.shape[0])
+        if true_cnt > cap:
+            if len(sparse) < 5 or sparse[4] is None:
+                raise ValueError(
+                    f"sparse occupancy overflowed its capacity ({true_cnt} "
+                    f"> {cap} blocks) and no dense fallback was passed")
+            return self.process_packed(sparse[4], dt, with_contours)
+        t1 = time.perf_counter()
+        n = self.grid.num_cells
+        nbytes = -(-n // 8)
+        buf = np.zeros((-(-nbytes // 16), 4), np.uint32)
+        buf[idx[:cnt]] = words[:cnt].view(np.uint32)
+        occ = self._unpack(buf.view(np.uint8)[:nbytes])
+        if self.backend == "host":
+            return self._host_cycle(t0, t1, occ, dt, with_contours)
+        return self.process(torch.from_numpy(occ.reshape(-1)), dt,
+                            with_contours)
+
+    def process(self, occupancy_u8: torch.Tensor,
+                dt: float | None = None,
+                with_contours: bool = True) -> MappingResult:
+        """One mapping step on a flat ``[num_cells]`` (or longer) occupancy
+        tensor on any device."""
+        if self.backend == "host":
+            res = self._segment_host(self.fetch_occupancy(occupancy_u8))
+        else:
+            z, y, x = self.grid.shape_zyx
+            res = self._segment_device(
+                occupancy_u8[:self.grid.num_cells].reshape(z, y, x))
+        return self._finish(res, dt, with_contours)
+
+    def _finish(self, res: dict, dt: float | None,
+                with_contours: bool) -> MappingResult:
+        dt = self.cfg.tracking_dt if dt is None else dt
+        objects = build_objects(
+            labels=res["labels"], num_labels=res["num_labels"],
+            merged_of_label=res["merged_of_label"],
+            num_merged=int(res["num_merged"]),
+            voxel_count=res["voxel_count"], centroid=res["centroid"],
+            vmin=res["vmin"], vmax=res["vmax"], grid=self.grid,
+            with_contours=with_contours,
+            detail_mask=self._detail_mask(res))
+        stats = track_objects(objects, self.tracks,
+                              self.cfg.object_min_area, dt,
+                              max_tracks=self.cfg.max_tracks)
+        return MappingResult(objects=objects, tracks=self.tracks,
+                             stats=stats, num_merged=int(res["num_merged"]))
+
+
+class HostCopy(NamedTuple):
+    """A submission whose device tensors were copied to the host
+    asynchronously (:func:`prefetch`)."""
+    item: Any                  # the submission as given
+    host: Any                  # the same with pinned host copies
+    ready: Optional[torch.cuda.Event]  # the copies (and the item) complete
+
+
+def _cuda_device(members) -> Optional[torch.device]:
+    return next((a.device for a in members
+                 if isinstance(a, torch.Tensor) and a.is_cuda), None)
+
+
+def prefetch(item) -> HostCopy:
+    """Start the device -> host copy of a submission without waiting: a
+    packed bitmap, or a sparse tuple (whose dense fallback, the rare
+    overflow path, stays on the device). The copies go into pinned host
+    tensors on the current stream of the tensors' device, which must be
+    the stream the outputs were produced on (the thread that ran the
+    fused step), and an event is recorded after them. Host inputs pass
+    through."""
+    members = list(item) if isinstance(item, tuple) else [item]
+    dev = _cuda_device(members)
+    if dev is None:
+        return HostCopy(item, item, None)
+    host = []
+    for k, a in enumerate(members):
+        if (isinstance(a, torch.Tensor) and a.is_cuda
+                and not (isinstance(item, tuple) and k >= 4)):
+            h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            h.copy_(a, non_blocking=True)
+            a = h
+        host.append(a)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(dev))
+    return HostCopy(item, tuple(host) if isinstance(item, tuple)
+                    else host[0], ready)
+
+
+def _in_place(item) -> HostCopy:
+    """A flat occupancy stays where it is; on a CUDA device an event on the
+    current stream marks it complete."""
+    dev = _cuda_device([item])
+    ready = None
+    if dev is not None:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(dev))
+    return HostCopy(item, item, ready)
+
+
+class AsyncMappingWorker:
+    """Runs the mapping cycle on a worker thread over the LATEST submitted
+    occupancy while fusion stages the next frames (the reference's resample
+    decoupling, ``_component.cpp:74-90``, applied between fusion and
+    mapping).
+
+    Queue depth 1 with drop-oldest: when mapping is slower than fusion it
+    processes the newest grid. Each cycle passes the MEASURED wall time
+    since the previous cycle into tracking (the filters are dt-corrected,
+    filter.h:70-84), clamped to ``[tracking_dt, dt_max]``.
+
+    A submission is a packed bitmap (``packed=True``), a sparse tuple
+    (:meth:`MappingPipeline.process_sparse`), a flat occupancy, or a
+    :class:`HostCopy` of one made earlier by :func:`prefetch`. The worker
+    waits for the copy's event before it reads the host bytes. An
+    exception in the worker stops it and is raised again from
+    :meth:`latest`, :meth:`submit` and :meth:`close`.
+    """
+
+    #: upper clamp for the measured inter-cycle dt (seconds)
+    dt_max = 2.0
+
+    def __init__(self, pipeline: MappingPipeline, packed: bool = False):
+        self.pipeline = pipeline
+        self.packed = packed
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._latest: Optional[MappingResult] = None
+        self._error: Optional[BaseException] = None
+        self._lock = threading.Lock()
+        self.cycles = 0
+        self._stop = False
+        self._last_cycle_t: Optional[float] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _raise_error(self):
+        if self._error is not None:
+            raise self._error
+
+    def submit(self, occupancy) -> None:
+        """Non-blocking: hand the newest occupancy to the worker, replacing
+        one not yet taken. A sparse tuple or a packed bitmap on the device
+        is prefetched to the host here unless the submission already is a
+        :class:`HostCopy`; a flat occupancy stays where it is (the
+        pipeline packs or segments it on its device). Call it from the
+        thread that ran the fused step."""
+        self._raise_error()
+        if not isinstance(occupancy, HostCopy):
+            occupancy = (prefetch(occupancy)
+                         if isinstance(occupancy, tuple) or self.packed
+                         else _in_place(occupancy))
+        try:
+            self._q.put_nowait(occupancy)
+        except queue.Full:
+            try:    # replace the stale grid with the newest
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            try:
+                self._q.put_nowait(occupancy)
+            except queue.Full:
+                pass
+
+    def latest(self) -> Optional[MappingResult]:
+        self._raise_error()
+        with self._lock:
+            return self._latest
+
+    def _cycle(self, sub: HostCopy):
+        if sub.ready is not None:
+            sub.ready.synchronize()
+        now = time.monotonic()
+        cfg = self.pipeline.cfg
+        dt = (cfg.tracking_dt if self._last_cycle_t is None
+              else min(max(now - self._last_cycle_t, cfg.tracking_dt),
+                       self.dt_max))
+        self._last_cycle_t = now
+        occ = sub.host
+        if isinstance(occ, tuple):
+            return self.pipeline.process_sparse(occ, dt=dt)
+        if self.packed:
+            return self.pipeline.process_packed(occ, dt=dt)
+        return self.pipeline.process(occ, dt=dt)
+
+    def _run(self):
+        while not self._stop:
+            try:
+                sub = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if sub is None:
+                break
+            try:
+                res = self._cycle(sub)
+            except Exception as e:  # noqa: BLE001 — surfaced to the caller
+                self._error = e
+                return
+            with self._lock:
+                self._latest = res
+                self.cycles += 1
+
+    def close(self):
+        """Stop the worker (after the cycle in progress) and raise its
+        exception, if it failed."""
+        self._stop = True
+        try:
+            self._q.put_nowait(None)
+        except queue.Full:
+            pass
+        self._thread.join(timeout=30.0)
+        self._raise_error()

@@ -1,0 +1,278 @@
+"""2.5-D object segmentation on a torch device (the JAX package's
+``mapping/segmentation.py``, an XLA program with no Pallas kernel, in
+plain PyTorch).
+
+- :func:`label_layers` — per-layer 8-connected components by iterated
+  min-label propagation + pointer jumping, labels densely renumbered in
+  raster order of each component's first pixel (``cv::connectedComponents``
+  numbering). All Z layers iterate as one ``[Z, Y, X]`` batch until none
+  changes: JAX ``vmap``s a ``lax.while_loop``, which runs until every layer
+  is fixed, and a propagation step leaves a fixed layer as it is, so the
+  labels are identical.
+- :func:`layer_connections` — label pairs sharing an (x, y) column between
+  adjacent layers (shader/layers_connections.glsl:70-114).
+- :func:`merge_labels` — cross-layer merge iterated to fixpoint (label 0
+  merges only with label 0; merged ids dense in ascending order of their
+  smallest global label, background = 0).
+- :func:`segment` — the full pass with per-object voxel count, centroid
+  and bounding box.
+
+Every step is integer and exact, so any device gives the JAX program's
+labels, merge table and boxes. The fixpoint loops test for change on the
+host (one synchronization per iteration). The JAX program's ``mode="drop"``
+scatters target one extra slot that is sliced off. Centroid sums
+accumulate in int64 (exact in any order, where CUDA's float atomics are
+not), then ``centroid = float32(sum) / float32(count)``: bit-equal to the
+JAX program's sequential float32 sums wherever every sum is below 2^24,
+and closer to the native float64 centroid above.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+_NEIGHBORS8 = [(-1, -1), (-1, 0), (-1, 1), (0, -1),
+               (0, 1), (1, -1), (1, 0), (1, 1)]
+_I32 = torch.int32
+
+
+def _shift_along(a: torch.Tensor, s: int, dim: int, fill) -> torch.Tensor:
+    """Shift so position i sees the value at i + s along ``dim`` (s may be
+    negative); vacated positions get ``fill``."""
+    n = a.shape[dim]
+    if s == 0:
+        return a
+    if abs(s) >= n:
+        return torch.full_like(a, fill)
+    pad_shape = list(a.shape)
+    pad_shape[dim] = abs(s)
+    pad = torch.full(pad_shape, fill, dtype=a.dtype, device=a.device)
+    if s > 0:
+        return torch.cat([a.narrow(dim, s, n - s), pad], dim)
+    return torch.cat([pad, a.narrow(dim, 0, n + s)], dim)
+
+
+def _shift_with_fill(a: torch.Tensor, dy: int, dx: int, fill
+                     ) -> torch.Tensor:
+    """Shift a ``[..., Y, X]`` tensor so (y, x) sees (y + dy, x + dx);
+    out-of-range positions get ``fill``."""
+    return _shift_along(_shift_along(a, dy, a.ndim - 2, fill), dx,
+                        a.ndim - 1, fill)
+
+
+def _segmented_min_scan(lab: torch.Tensor, occ: torch.Tensor, big: int,
+                        dim: int) -> torch.Tensor:
+    """Min of ``lab`` over each maximal run of consecutive occupied pixels
+    along ``dim``, by log2(n) doubling rounds of shift + min in each
+    direction (JAX ``_segmented_min_scan``): a label crosses a whole
+    straight run in one propagation step."""
+    n = lab.shape[dim]
+    val = torch.where(occ, lab, big)
+
+    def one_direction(sign):
+        m, c = val, occ
+        s = 1
+        while s < n:
+            ms = _shift_along(m, sign * s, dim, big)
+            cs = _shift_along(c, sign * s, dim, False)
+            m = torch.minimum(m, torch.where(c, ms, big))
+            c = c & cs
+            s *= 2
+        return m
+
+    return torch.minimum(one_direction(1), one_direction(-1))
+
+
+def _fixpoint(step, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Apply ``step`` until the result stops changing (the JAX
+    ``while_loop`` with its ``any(new != old)`` condition); returns the
+    fixpoint and the number of steps, the last one unchanged."""
+    iters = 0
+    while True:
+        new = step(x)
+        iters += 1
+        if torch.equal(new, x):
+            return new, iters
+        x = new
+
+
+def _cc_roots(occ: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """8-connected components of every layer of a ``[Z, Y, X]`` bool stack:
+    each occupied pixel's root flat index within its layer (int32), N = Y*X
+    for background; and the iteration count.
+
+    Per iteration: segmented min-scans along rows and columns, one
+    8-neighbourhood min, and two pointer jumps."""
+    z, y, x = occ.shape
+    n = y * x
+    idx = torch.arange(n, dtype=_I32, device=occ.device).reshape(1, y, x)
+    lab0 = torch.where(occ, idx, n)
+
+    def propagate(lab):
+        best = torch.minimum(lab, _segmented_min_scan(lab, occ, n, dim=2))
+        best = torch.minimum(best, _segmented_min_scan(best, occ, n, dim=1))
+        best = torch.where(occ, best, n)
+        for dy, dx in _NEIGHBORS8:
+            sh = _shift_with_fill(best, dy, dx, n)
+            # labels live only on occupied cells, so chained shifts
+            # cannot bridge across background
+            best = torch.where(occ, torch.minimum(best, sh), n)
+        flat = best.reshape(z, n)
+        for _ in range(2):      # follow the candidate root's label twice
+            flat = torch.where(
+                flat < n, torch.gather(flat, 1, flat.clamp_max(n - 1).long()),
+                n)
+        return flat.reshape(z, y, x)
+
+    return _fixpoint(propagate, lab0)
+
+
+def _label_layers(occ_layers: torch.Tensor, max_labels: int):
+    z, y, x = occ_layers.shape
+    n = y * x
+    occ = occ_layers.bool()
+    roots, iters = _cc_roots(occ)
+    flat_roots = torch.where(occ, roots, n).reshape(z, n).long()
+    present = torch.zeros((z, n + 1), dtype=_I32, device=occ.device)
+    present.scatter_(1, flat_roots, 1)
+    present = present[:, :n]
+    rank = torch.cumsum(present, dim=1, dtype=_I32)  # 1-based id at a root
+    dense = torch.gather(rank, 1, roots.reshape(z, n).clamp_max(n - 1).long())
+    dense = torch.where(occ, dense.reshape(z, y, x), 0)
+    labels = dense.clamp_max(max_labels - 1)
+    num = (present.sum(dim=1, dtype=_I32) + 1).clamp_max(max_labels)
+    return labels, num, iters
+
+
+def label_layers(occ_layers: torch.Tensor, max_labels: int):
+    """Label every ``[Y, X]`` layer of a ``[Z, Y, X]`` bool stack.
+
+    Returns (labels ``[Z, Y, X]`` int32, dense per-layer ids, 0 =
+    background; num_labels ``[Z]`` int32 including background). Components
+    beyond ``max_labels - 1`` per layer fold into the last id."""
+    labels, num, _ = _label_layers(occ_layers, max_labels)
+    return labels, num
+
+
+def layer_connections(labels: torch.Tensor, max_labels: int) -> torch.Tensor:
+    """``[Z-1, L, L]`` bool: ``conn[z, a, b]`` = some (x, y) column has label
+    a in layer z and label b in layer z+1 (cpp:2180-2188)."""
+    z = labels.shape[0]
+    l = max_labels
+    n = labels[0].numel()
+    a = labels[:-1].reshape(z - 1, n).long()
+    b = labels[1:].reshape(z - 1, n).long()
+    zz = torch.arange(z - 1, device=labels.device)[:, None]
+    conn = torch.zeros(((z - 1) * l * l,), dtype=torch.bool,
+                       device=labels.device)
+    conn[(zz * (l * l) + a * l + b).reshape(-1)] = True
+    return conn.reshape(z - 1, l, l)
+
+
+class MergeResult(NamedTuple):
+    merged_of_label: torch.Tensor  # [Z, L] int32 dense merged id (0 = bg)
+    num_merged: torch.Tensor       # 0-d int32 (including background)
+
+
+def _merge_labels(conn: torch.Tensor, num_labels: torch.Tensor,
+                  max_labels: int):
+    zm1, l, _ = conn.shape
+    z = zm1 + 1
+    t = z * l
+    dev = conn.device
+    lab_ids = torch.arange(l, dtype=_I32, device=dev)
+    valid = lab_ids[None, :] < num_labels[:, None]             # [Z, L]
+    ids = torch.arange(t, dtype=_I32, device=dev)
+    glob0 = torch.where(valid, ids.reshape(z, l), t)
+    # background only merges with background
+    is_bg = lab_ids == 0
+    allowed = conn & ~(is_bg[None, :, None] ^ is_bg[None, None, :])
+
+    def propagate(glob):
+        ga = glob[:-1][:, :, None]                              # [Z-1, L, 1]
+        gb = glob[1:][:, None, :]                               # [Z-1, 1, L]
+        pair_min = torch.where(allowed, torch.minimum(ga, gb), t)
+        upd_a = pair_min.amin(dim=2)                            # [Z-1, L]
+        upd_b = pair_min.amin(dim=1)
+        ng = torch.cat([torch.minimum(glob[:-1], upd_a), glob[-1:]])
+        ng = torch.cat([ng[:1], torch.minimum(ng[1:], upd_b)])
+        flat = ng.reshape(-1)      # pointer jump through the flat table
+        flat = torch.where(flat < t, flat[flat.clamp_max(t - 1).long()], t)
+        return flat.reshape(z, l)
+
+    glob, iters = _fixpoint(propagate, glob0)
+    # dense renumber in ascending root order
+    flat = glob.reshape(-1)
+    is_root = valid.reshape(-1) & (flat == ids)
+    rank = torch.cumsum(is_root.to(_I32), dim=0, dtype=_I32) - 1
+    merged = torch.where(valid.reshape(-1), rank[flat.clamp_max(t - 1).long()],
+                         0)
+    return MergeResult(merged.reshape(z, l),
+                       is_root.sum(dtype=_I32)), iters
+
+
+def merge_labels(conn: torch.Tensor, num_labels: torch.Tensor,
+                 max_labels: int) -> MergeResult:
+    """Merge per-layer labels across layers to a global object id."""
+    return _merge_labels(conn, num_labels, max_labels)[0]
+
+
+class SegmentationResult(NamedTuple):
+    labels: torch.Tensor           # [Z, Y, X] int32 per-layer dense labels
+    num_labels: torch.Tensor       # [Z] int32
+    merged_of_label: torch.Tensor  # [Z, L] int32
+    merged_map: torch.Tensor       # [Z, Y, X] int32 merged id per voxel
+    num_merged: torch.Tensor       # 0-d int32 (incl. background id 0)
+    # per-object voxel statistics, index = merged id (0 = background):
+    voxel_count: torch.Tensor      # [M] int32
+    centroid: torch.Tensor         # [M, 3] float32 mean voxel (x, y, z)
+    vmin: torch.Tensor             # [M, 3] int32 min voxel coordinate
+    vmax: torch.Tensor             # [M, 3] int32 max voxel coordinate
+    # port only: iterations of the labeling and the merge fixpoint loops
+    iterations: Tuple[int, int] = (0, 0)
+
+
+def segment(occ_layers: torch.Tensor, max_labels: int,
+            max_objects: int) -> SegmentationResult:
+    """Full segmentation of a ``[Z, Y, X]`` occupancy stack (bool or
+    integer; nonzero = occupied) on its device."""
+    occ = occ_layers > 0
+    z, y, x = occ.shape
+    dev = occ.device
+    labels, num_labels, cc_iters = _label_layers(occ, max_labels)
+    conn = layer_connections(labels, max_labels)
+    mr, merge_iters = _merge_labels(conn, num_labels, max_labels)
+
+    l = max_labels
+    flat_lab = (torch.arange(z, dtype=_I32, device=dev)[:, None, None] * l
+                + labels)
+    merged_map = mr.merged_of_label.reshape(-1)[flat_lab.long()]
+
+    m = max_objects
+    # stats over occupied voxels; the rest go to slot m, sliced off
+    ids = torch.where(occ, merged_map.clamp_max(m - 1), m).reshape(-1).long()
+    coords = [torch.arange(n, dtype=_I32, device=dev).reshape(shape)
+              .expand(z, y, x).reshape(-1)
+              for n, shape in ((x, (1, 1, x)), (y, (1, y, 1)),
+                               (z, (z, 1, 1)))]
+    count = torch.bincount(ids, minlength=m + 1)[:m].to(_I32)
+    sums = torch.stack([torch.zeros(m + 1, dtype=torch.int64, device=dev)
+                        .index_add_(0, ids, c.long())[:m] for c in coords], 1)
+    centroid = (sums.to(torch.float32)
+                / count.clamp_min(1).to(torch.float32)[:, None])
+    big = torch.iinfo(_I32).max
+    vmin = torch.stack([torch.full((m + 1,), big, dtype=_I32, device=dev)
+                        .scatter_reduce_(0, ids, c, "amin")[:m]
+                        for c in coords], 1)
+    vmax = torch.stack([torch.full((m + 1,), -big, dtype=_I32, device=dev)
+                        .scatter_reduce_(0, ids, c, "amax")[:m]
+                        for c in coords], 1)
+    seen = count[:, None] > 0
+    return SegmentationResult(
+        labels=labels, num_labels=num_labels,
+        merged_of_label=mr.merged_of_label, merged_map=merged_map,
+        num_merged=mr.num_merged, voxel_count=count, centroid=centroid,
+        vmin=torch.where(seen, vmin, 0), vmax=torch.where(seen, vmax, -1),
+        iterations=(cc_iters, merge_iters))

@@ -42,6 +42,8 @@ import torch
 from ros_gpu_depthmap_fusion_tpu_torch.core import timeutil
 from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
 from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
+from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (
+    MappingPipeline, MappingResult)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.depth_codec import (
     B_BUCKETS, decode_depth, decode_depth_p4, decode_depth_temporal)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels.flying_pixels import (
@@ -366,10 +368,16 @@ class FusionEngine:
     (a worker thread, and a side CUDA stream for the copy) with frame k-1's
     step: :meth:`process` then returns frame k-1's outputs (``None`` on
     the first call) and :meth:`flush` the last frame's.
+
+    ``enable_mapping=True`` builds :attr:`mapping`, a
+    :class:`MappingPipeline` on the engine's device, for
+    :meth:`segment_and_track`; a caller may also set :attr:`mapping`
+    itself (to drive it from an ``AsyncMappingWorker``).
     """
 
     def __init__(self, cfg: FusionConfig, device,
-                 grid: Optional[VoxelGrid] = None, pipeline_depth: int = 0):
+                 grid: Optional[VoxelGrid] = None, pipeline_depth: int = 0,
+                 enable_mapping: bool = False):
         check_supported(cfg)
         if pipeline_depth not in (0, 1):
             raise ValueError(f"pipeline_depth is 0 or 1, got "
@@ -384,6 +392,9 @@ class FusionEngine:
                                    cfg.total_point_capacity,
                                    cfg.voxelize_output_capacity)
         self.state = initial_state(cfg, self.grid, self.device)
+        self.enable_mapping = enable_mapping
+        self.mapping = (MappingPipeline(cfg, self.grid, self.device)
+                        if enable_mapping else None)
         self._stage_cap = cfg.max_points_per_sequence
         self._seq_stage_cap = max(1, cfg.num_point_sequences * 4)
         self.layout = PacketLayout.for_config(
@@ -425,6 +436,17 @@ class FusionEngine:
             if cuda:
                 self._copy_stream = torch.cuda.Stream(self.device)
         self.clear()
+
+    def set_runtime_filters(self, fp_threshold=None, fp_max_distance=None,
+                            ps_threshold=None):
+        """Change the filter scalars live: they ride in the next frame's
+        packet (filter sizes and rot45 stay fixed per engine)."""
+        if fp_threshold is not None:
+            self.fp_threshold = float(fp_threshold)
+        if fp_max_distance is not None:
+            self.fp_max_distance = float(fp_max_distance)
+        if ps_threshold is not None:
+            self.ps_threshold = float(ps_threshold)
 
     # --- ingestion (reference addDepthmap / addPointSequence) ---
     def clear(self):
@@ -716,6 +738,23 @@ class FusionEngine:
             return None
         fut, self._pending = self._pending, None
         return self._step_put(fut)
+
+    def segment_and_track(self, out: FrameOutputs) -> MappingResult:
+        """Object segmentation + tracking on a frame's occupancy grid
+        (reference objectSegmentation + objectTracking). Needs
+        ``out.occupancy_u8`` (``cfg.emit_occupancy_u8``); a frame without it
+        goes through ``self.mapping.process_sparse`` or
+        ``process_packed``."""
+        if self.mapping is None:
+            raise RuntimeError("engine constructed with enable_mapping=False")
+        if out.occupancy_u8.numel() < self.grid.num_cells:
+            raise ValueError(
+                "segment_and_track needs the dense occupancy, and this "
+                "engine's frames carry a stub (emit_occupancy_u8=False): "
+                "use self.mapping.process_sparse on the frame's "
+                "occupancy_sparse_* outputs, or process_packed on "
+                "occupancy_bits")
+        return self.mapping.process(out.occupancy_u8, self.cfg.tracking_dt)
 
     def close(self):
         """Stop the pipelined engine's worker thread (after the frame in

@@ -1,6 +1,8 @@
 """ctypes binding of the native host runtime (``native/libfusionhost.so``),
-the part the port's engine uses: the three depth-link encoders and the
-lidar point staging copy.
+the part the port uses: the three depth-link encoders, the lidar point
+staging copy, and the mapping's host segmentation (per-layer connected
+components, cross-layer merge, voxel stats), object assembly and contour
+tracing.
 
 A copy of the JAX package's ``utils/native.py`` (the port cannot import
 it: importing anything of that package imports jax). Both packages load
@@ -11,9 +13,12 @@ is git-ignored).
 Differences from the JAX copy: the library is built under a private name
 and renamed into place (test workers may build it at once); the encoders'
 zigzag scratch buffer is per thread (the pipelined engine encodes on a
-worker thread, and two engines may encode at once); and :func:`require`
-raises instead of the encoders returning ``None`` when the library is
-missing, so that a configured codec never silently becomes the raw link.
+worker thread, and two engines may encode at once); and the encoders and
+the mapping entry points raise (through :func:`require`) when the library
+is missing, where the JAX copy returns ``None`` or falls back to numpy
+(only the staging copy, the same either way, keeps its numpy path), so
+that a configured codec never silently becomes the raw link and the host
+segmentation backend never silently becomes another.
 """
 
 from __future__ import annotations
@@ -83,8 +88,10 @@ def _load() -> Optional[ctypes.CDLL]:
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         i64 = ctypes.c_int64
         i32 = ctypes.c_int32
+        f64 = ctypes.c_double
 
         lib.fh_stage_points_xyz.argtypes = [f32p, i64, i64, f32p, i64]
         lib.fh_stage_points_xyz.restype = i64
@@ -100,6 +107,24 @@ def _load() -> Optional[ctypes.CDLL]:
             u16p, u16p, i32, i32, i32, i32, i32, i32, i64, u32p, u8p,
             u16p, u32p, u32p, i64p]
         lib.fh_depth_encode_p4.restype = i32
+        lib.fh_cc_label_u8.argtypes = [u8p, u16p, i32, i32, i32p, f64p, i32]
+        lib.fh_cc_label_u8.restype = i32
+        lib.fh_trace_contour.argtypes = [u8p, i32, i32, i32, i32, i32p, i64]
+        lib.fh_trace_contour.restype = i64
+        lib.fh_assemble_count.argtypes = [u16p, i32, i32, i32, i32p, i32,
+                                          i32, i64p]
+        lib.fh_assemble_count.restype = None
+        lib.fh_assemble_objects.argtypes = [
+            u16p, i32, i32, i32, i32p, i32, i32, f64, f64, f64, f64,
+            i64p, i32p,          # group_start, pts_xy
+            i64p, i32p, f64p,    # hull_start, hull_xy, layer_shapes
+            i64p, i32p,          # tv_start, tv_xy
+            i64p, i32p, f64p,    # tv_hull_start, tv_hull_xy, tv_shapes
+            i32p, i64p, i32p, i64, f64p]  # comps, contours, cap, shapes
+        lib.fh_assemble_objects.restype = i32
+        lib.fh_segment_grid.argtypes = [u8p, i32, i32, i32, i32, i32, u16p,
+                                        i32p, i32p, i64p, f64p, i32p, i32p]
+        lib.fh_segment_grid.restype = i32
         _lib = lib
         return _lib
 
@@ -114,7 +139,8 @@ def require() -> ctypes.CDLL:
     if lib is None:
         raise RuntimeError(
             "the native host library (native/libfusionhost.so) did not "
-            f"load, and the configured depth-link codec needs it: {_error}")
+            "load, and the depth-link encoders and the host mapping need "
+            f"it: {_error}")
     return lib
 
 
@@ -275,3 +301,120 @@ def stage_points_xyz(xyz: np.ndarray, out: np.ndarray) -> int:
     out[:n, :3] = src[:n, :3]
     out[:n, 3] = 1.0
     return n
+
+
+def cc_label(img: np.ndarray, max_labels: int = 65535):
+    """8-connected labeling of a ``[H, W]`` binary image
+    (``fh_cc_label_u8``). Returns ``(labels u16, num_labels incl.
+    background, stats [num, 5] (x, y, w, h, area), centroids [num, 2])``."""
+    lib = require()
+    m = np.ascontiguousarray((np.asarray(img) != 0).astype(np.uint8))
+    h, w = m.shape
+    labels = np.zeros((h, w), np.uint16)
+    cap = min(max_labels, h * w + 1)
+    stats = np.zeros((cap, 5), np.int32)
+    cents = np.zeros((cap, 2), np.float64)
+    num = int(lib.fh_cc_label_u8(m, labels.reshape(-1), h, w,
+                                 stats.reshape(-1), cents.reshape(-1), cap))
+    return labels, num, stats[:num], cents[:num]
+
+
+def trace_contour(mask: np.ndarray, sy: int, sx: int) -> np.ndarray:
+    """Moore contour of the component whose first raster pixel is
+    ``(sy, sx)`` (``fh_trace_contour``); ``[K, 2]`` (x, y)."""
+    lib = require()
+    m = np.ascontiguousarray((np.asarray(mask) != 0).astype(np.uint8))
+    h, w = m.shape
+    cap = 4 * (h + w) + 8 * max(h, w)
+    out = np.zeros(2 * cap, np.int32)
+    n = int(lib.fh_trace_contour(m, h, w, sy, sx, out, cap))
+    if n >= cap:    # retry with the worst-case bound
+        cap = 4 * h * w + 4
+        out = np.zeros(2 * cap, np.int32)
+        n = int(lib.fh_trace_contour(m, h, w, sy, sx, out, cap))
+    return out[:2 * n].reshape(-1, 2)
+
+
+def assemble_objects(labels: np.ndarray, merged_of_label: np.ndarray,
+                     num_merged: int, cell_size_xy, lower_xy):
+    """Per-frame object assembly (``fh_assemble_count`` +
+    ``fh_assemble_objects``): groups the labeled voxels by (merged object,
+    layer) and computes convex hulls, min-area rects and min enclosing
+    circles in voxel and world xy, per-object topviews and per-component
+    Moore contours. Returns a dict of flat arrays (the JAX copy's layout),
+    or ``None`` when the native call reports an overflow."""
+    lib = require()
+    lab = np.ascontiguousarray(labels, np.uint16)
+    z, h, w = lab.shape
+    lut = np.ascontiguousarray(merged_of_label, np.int32)
+    nl = lut.shape[1]
+    m = max(int(num_merged), 1)
+    sizes = np.zeros(2, np.int64)
+    lib.fh_assemble_count(lab.reshape(-1), z, h, w, lut.reshape(-1), nl, m,
+                          sizes)
+    fg, ncomp = int(sizes[0]), int(sizes[1])
+    ng = m * z
+    pts = max(2 * fg, 2)
+    a = dict(group_start=np.zeros(ng + 1, np.int64),
+             pts_xy=np.zeros(pts, np.int32),
+             hull_start=np.zeros(ng + 1, np.int64),
+             hull_xy=np.zeros(pts, np.int32),
+             layer_shapes=np.zeros(16 * ng, np.float64),
+             tv_start=np.zeros(m + 1, np.int64),
+             tv_xy=np.zeros(pts, np.int32),
+             tv_hull_start=np.zeros(m + 1, np.int64),
+             tv_hull_xy=np.zeros(pts, np.int32),
+             tv_shapes=np.zeros(16 * m, np.float64),
+             comp_zlm=np.zeros(max(3 * ncomp, 3), np.int32),
+             contour_start=np.zeros(ncomp + 1, np.int64))
+    contour_cap = 4 * fg + 16 * ncomp + 64
+    a["contour_xy"] = np.zeros(2 * contour_cap, np.int32)
+    a["comp_shapes"] = np.zeros(max(16 * ncomp, 16), np.float64)
+    nc = int(lib.fh_assemble_objects(
+        lab.reshape(-1), z, h, w, lut.reshape(-1), nl, m,
+        float(cell_size_xy[0]), float(cell_size_xy[1]),
+        float(lower_xy[0]), float(lower_xy[1]),
+        a["group_start"], a["pts_xy"], a["hull_start"], a["hull_xy"],
+        a["layer_shapes"], a["tv_start"], a["tv_xy"], a["tv_hull_start"],
+        a["tv_hull_xy"], a["tv_shapes"], a["comp_zlm"], a["contour_start"],
+        a["contour_xy"], contour_cap, a["comp_shapes"]))
+    if nc < 0:
+        return None
+    return dict(
+        num_merged=m, num_layers=z,
+        group_start=a["group_start"], pts_xy=a["pts_xy"].reshape(-1, 2),
+        hull_start=a["hull_start"], hull_xy=a["hull_xy"].reshape(-1, 2),
+        layer_shapes=a["layer_shapes"].reshape(ng, 16),
+        tv_start=a["tv_start"], tv_xy=a["tv_xy"].reshape(-1, 2),
+        tv_hull_start=a["tv_hull_start"],
+        tv_hull_xy=a["tv_hull_xy"].reshape(-1, 2),
+        tv_shapes=a["tv_shapes"].reshape(m, 16),
+        comp_zlm=a["comp_zlm"].reshape(-1, 3)[:nc],
+        contour_start=a["contour_start"][:nc + 1],
+        contour_xy=a["contour_xy"].reshape(-1, 2),
+        comp_shapes=a["comp_shapes"].reshape(-1, 16)[:nc])
+
+
+def segment_grid(occ_zyx: np.ndarray, max_labels: int, max_objects: int):
+    """Host segmentation (``fh_segment_grid``): per-layer 8-connected
+    components, cross-layer merge to fixpoint and per-object voxel stats,
+    equal to :func:`mapping.segmentation.segment` on labels, merge ids,
+    counts and boxes (centroids in float64). Object ids clamp to
+    ``max_objects - 1`` as on the device. Returns a dict."""
+    lib = require()
+    occ = np.ascontiguousarray((np.asarray(occ_zyx) != 0).astype(np.uint8))
+    z, h, w = occ.shape
+    labels = np.zeros((z, h, w), np.uint16)
+    num_labels = np.zeros(z, np.int32)
+    merged = np.zeros((z, max_labels), np.int32)
+    count = np.zeros(max_objects, np.int64)
+    cen = np.zeros((max_objects, 3), np.float64)
+    vmin = np.zeros((max_objects, 3), np.int32)
+    vmax = np.zeros((max_objects, 3), np.int32)
+    nm = int(lib.fh_segment_grid(
+        occ.reshape(-1), z, h, w, max_labels, max_objects,
+        labels.reshape(-1), num_labels, merged.reshape(-1), count,
+        cen.reshape(-1), vmin.reshape(-1), vmax.reshape(-1)))
+    return dict(labels=labels, num_labels=num_labels, merged_of_label=merged,
+                num_merged=nm, voxel_count=count, centroid=cen,
+                vmin=vmin, vmax=vmax)

@@ -2,15 +2,23 @@
 at edge-case shapes (empty and ragged tiles, sentinels, forced breaks,
 capacity overflow, every column count, several rings; for the fused front,
 widths below, at and above 128, clamped cells and points outside the
-crop), and small engines card == CPU on the raw and the coded link. They
-need an NVIDIA GPU and nvcc and skip elsewhere; on a GPU machine run
+crop), small engines card == CPU on the raw and the coded link, and the
+mapping on the card == CPU (device segmentation up to ``bench.py``'s
+400x400x21 grid, the sparse mapping cycle, the component with mapping
+on). They need an NVIDIA GPU and nvcc and skip elsewhere; on a GPU
+machine run
 
     python -m pytest -q -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest configures JAX, which this file
 does not use). ``chip_smoke.py`` checks the same kernels at the main
 path's shapes.
+
+:func:`assert_same` (recursive equality of nested results) also serves the
+CPU parity tests of the mapping and the component, which import it.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,6 +32,40 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def assert_same(a, b, path="result"):
+    """Recursive equality of nested results (a JAX-package value and its
+    port counterpart, or two port values: dataclasses, NamedTuples, plain
+    objects, arrays): same class names, same fields (the second value's,
+    for dataclasses), arrays of equal dtype and shape bit for bit, floats
+    exactly equal."""
+    assert type(a).__name__ == type(b).__name__, (path, type(a), type(b))
+    if isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, (path, a, b)
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for k, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{path}[{k}]")
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            assert_same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (float, np.floating)):
+        assert a == b or (a != a and b != b), (path, a, b)
+    elif isinstance(a, (int, bool, str, type(None), np.generic)):
+        assert a == b, (path, a, b)
+    else:
+        names = list(getattr(a, "__dict__", {}))
+        for cls in type(a).__mro__:
+            names += [s for s in getattr(cls, "__slots__", ())
+                      if s not in names]
+        if dataclasses.is_dataclass(a):
+            names = [f.name for f in dataclasses.fields(b)]
+        assert names, (path, type(a))
+        for n in names:
+            assert_same(getattr(a, n), getattr(b, n), f"{path}.{n}")
 
 
 def _keys(rng, n, sentinel):
@@ -234,3 +276,127 @@ def test_link_engine_on_card_equals_cpu(dev):
     for (a, _), (b, _) in zip(*outs):
         for k in b._fields:
             assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+
+
+def _bench_like_grid(rng, z, y, x):
+    """A noisy two-layer floor, 60 boxes and speckle."""
+    occ = np.zeros((z, y, x), bool)
+    occ[0:2] = rng.random((2, y, x)) < 0.5
+    for _ in range(60):
+        x0, y0 = rng.integers(0, x - 30), rng.integers(0, y - 30)
+        w, h = rng.integers(3, 30, 2)
+        z0 = rng.integers(0, max(1, z - 5))
+        occ[z0:z0 + int(rng.integers(1, 8)), y0:y0 + h, x0:x0 + w] = True
+    return occ | (rng.random((z, y, x)) < 0.002)
+
+
+@pytest.mark.parametrize("shape", [(7, 40, 48), (21, 400, 400)])
+def test_segment_on_card_equals_cpu(dev, shape):
+    """The device segmentation on the card equals the CPU run in every
+    field, the centroid included (int64 sums: order-free)."""
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import (
+        segment)
+    occ = torch.from_numpy(_bench_like_grid(np.random.default_rng(3),
+                                            *shape))
+    got = segment(occ.to(dev), 256, 64)
+    ref = segment(occ, 256, 64)
+    for f in ref._fields:
+        if f == "iterations":
+            assert got.iterations == ref.iterations
+        else:
+            assert torch.equal(getattr(got, f).cpu(), getattr(ref, f)), f
+    assert int(ref.num_merged) > 2
+
+
+def _mapping_rig(emit_u8):
+    from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+    return FusionConfig(
+        num_depth_streams=2, depth_height=24, depth_width=32,
+        num_point_sequences=1, crop_min=(-5, -5, -5), crop_max=(5, 5, 5),
+        voxel_min=(-5, -5, -5), voxel_max=(5, 5, 5),
+        voxel_size=(0.5, 0.5, 0.5), rollbuffer_point_capacity=256,
+        rollbuffer_seq_capacity=16, max_points_per_sequence=64,
+        voxel_occupancy_lifetime=3, depth_link_codec="none",
+        lidar_link_quant_step=0.002, occupancy_sparse_capacity=64,
+        emit_occupancy_u8=emit_u8, emit_raw_points=False,
+        mapping_detail_min_area=-1.0)
+
+
+@pytest.mark.parametrize("backend", ["host", "device"])
+def test_mapping_sparse_on_card_equals_cpu(dev, backend):
+    """A small pipelined engine on the card and on the CPU: each frame's
+    ``process_sparse`` cycle (from the card's outputs on the card's
+    pipeline) equals the CPU's, tracks included."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        FusionEngine)
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+    if backend == "host" and not native.available():
+        pytest.skip("native library not built")
+    cfg = _mapping_rig(False).replace(segmentation_backend=backend)
+    engines = [FusionEngine(cfg, device=d, pipeline_depth=1,
+                            enable_mapping=True) for d in (dev, "cpu")]
+    intr = PinholeIntrinsics.default_for(32, 24)
+    eye = np.eye(4, dtype=np.float32)
+    rng = np.random.default_rng(5)
+    u = np.arange(32)[None, :] + np.zeros((24, 1))
+    t = np.linspace(0, np.pi, 60)
+    arc = np.stack([0.8 * np.cos(t), 0.8 * np.sin(t),
+                    1 + 0.1 * np.sin(5 * t)], -1).astype(np.float32)
+    results = ([], [])
+    for f in range(6):
+        d = (2000 + 40 * u + 6 * rng.standard_normal((2, 24, 32))) \
+            .astype(np.uint16)
+        d[:, 5:12, 3 * f:3 * f + 8] -= 600
+        for e, r in zip(engines, results):
+            for i in range(2):
+                e.add_depthmap(i, d[i], intr, eye, eye)
+            e.add_point_sequence(arc, sec=1, nsec=f * 33000000, tf_move=eye)
+            out = e.process(1.0 + f / 30.0)
+            if out is not None:
+                r.append(e.mapping.process_sparse(
+                    (out.occupancy_sparse_idx, out.occupancy_sparse_words,
+                     out.occupancy_sparse_count, out.occupancy_sparse_true,
+                     out.occupancy_bits)))
+    for e in engines:
+        e.close()
+    assert len(results[0]) == len(results[1]) == 5
+    for k, (a, b) in enumerate(zip(*results)):
+        assert_same(b, a, f"cycle {k}")
+    assert results[0][-1].num_merged >= 2
+
+
+def test_component_with_mapping_on_card_equals_cpu(dev):
+    """``FusionComponent`` with mapping on, one stream plus lidar, on the
+    card and on the CPU: equal ``on_points`` and ``on_mapping`` payloads."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.component import (
+        FusionComponent)
+    cfg = _mapping_rig(True).replace(num_depth_streams=1, resample_rate=0.0,
+                                     segmentation_backend="device")
+    got = {d: ([], []) for d in ("card", "cpu")}
+    comps = {d: FusionComponent(cfg, dv, on_points=got[d][0].append,
+                                on_mapping=got[d][1].append,
+                                enable_mapping=True)
+             for d, dv in (("card", dev), ("cpu", "cpu"))}
+    intr = PinholeIntrinsics.default_for(32, 24)
+    eye = np.eye(4, dtype=np.float32)
+    s = np.linspace(0, 1, 40)
+    for f in range(4):
+        depth = np.full((24, 32), 2200, np.uint16)
+        depth[6:14, 4 + 2 * f:14 + 2 * f] = 1500
+        arc = np.stack([2 * np.cos(s + f), 2 * np.sin(s + f), 0 * s + 1],
+                       -1)
+        for c in comps.values():
+            c.callback_point_sequence(1.0 + f / 30 - 0.01, arc)
+            c.callback_depthmap(0, 1.0 + f / 30, depth, intr, eye)
+    (cp, cm), (hp, hm) = got["card"], got["cpu"]
+    assert len(cp) == len(hp) == 4 and len(cm) == len(hm) == 4
+    for a, b in zip(cp, hp):
+        for k in b._fields:
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+    for k, (a, b) in enumerate(zip(hm, cm)):
+        assert_same(a, b, f"on_mapping[{k}]")
+    assert hm[-1].num_merged >= 2

@@ -184,6 +184,8 @@ def test_port_imports_no_jax():
     code = ("import sys; pre = 'jax' in sys.modules; "
             "import ros_gpu_depthmap_fusion_tpu_torch, "
             "ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine, "
+            "ros_gpu_depthmap_fusion_tpu_torch.pipeline.component, "
+            "ros_gpu_depthmap_fusion_tpu_torch.mapping, "
             "ros_gpu_depthmap_fusion_tpu_torch.ops.kernels._build, "
             "ros_gpu_depthmap_fusion_tpu_torch.ops.kernels."
             "fused_unproject_rle; "

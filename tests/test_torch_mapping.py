@@ -1,0 +1,490 @@
+"""The port's mapping (``ros_gpu_depthmap_fusion_tpu_torch.mapping``) against
+the JAX package's, on the CPU.
+
+Segmentation: the port's ``label_layers``, ``layer_connections``,
+``merge_labels`` and ``segment`` against the jitted JAX program (as
+``tests/test_mapping_core.py`` runs it) on that file's grids; integer
+outputs bit-equal, and the centroid bit-equal because every per-object
+coordinate sum of these grids is below 2^24 (asserted). Against the native
+host segmentation: integers exact, centroid within 1e-4 (float32 against
+float64). Objects, tracks and ``MappingResult``s: bit-equal, compared field
+by field through every nested object.
+
+The native host library is loaded here through the port's
+``native.require()`` path (a private-name build renamed into place) when
+this module is imported, before anything calls into the JAX package's
+mapping; tests that need it skip only where that build fails.
+"""
+
+import functools
+import sys
+import threading
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ros_gpu_depthmap_fusion_tpu_torch.utils import native as tnative
+
+_NATIVE = tnative.available()
+
+from ros_gpu_depthmap_fusion_tpu.core.config import FusionConfig as JCfg  # noqa: E402,E501
+from ros_gpu_depthmap_fusion_tpu.core.grid import VoxelGrid as JGrid  # noqa: E402,E501
+from ros_gpu_depthmap_fusion_tpu.mapping import (  # noqa: E402
+    objects as jobj, segmentation as jseg, tracking as jtrk)
+from ros_gpu_depthmap_fusion_tpu.mapping.pipeline import (  # noqa: E402
+    MappingPipeline as JPipeline)
+from ros_gpu_depthmap_fusion_tpu.utils import native as jnative  # noqa: E402
+
+from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig as TCfg  # noqa: E402,E501
+from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid as TGrid  # noqa: E402,E501
+from ros_gpu_depthmap_fusion_tpu_torch.mapping import (  # noqa: E402
+    objects as tobj, segmentation as tseg, tracking as ttrk)
+from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (  # noqa: E402
+    AsyncMappingWorker, MappingPipeline)
+from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import (  # noqa: E402
+    occupancy_bitmap, occupancy_bitmap_sparse)
+
+from test_torch_cuda import assert_same  # noqa: E402
+
+
+@pytest.fixture
+def need_native():
+    if not _NATIVE:
+        pytest.skip(f"native host library did not build: {tnative._error}")
+
+
+# --- grids (tests/test_mapping_core.py) ------------------------------------
+
+def _box_grid(rng, z=7, y=40, x=48, boxes=10, speckle=0.02):
+    occ = np.zeros((z, y, x), bool)
+    for _ in range(boxes):
+        x0, y0 = rng.integers(0, x - 10), rng.integers(0, y - 10)
+        w, h = rng.integers(2, 9, 2)
+        z0 = rng.integers(0, z - 2)
+        occ[z0:z0 + int(rng.integers(1, 4)), y0:y0 + h, x0:x0 + w] = True
+    return occ | (rng.random((z, y, x)) < speckle)
+
+
+def _zigzag():
+    occ = np.zeros((6, 4, 20), bool)
+    for k in range(6):
+        occ[k, 1:3, 2 * k: 2 * k + 4] = True
+    return occ
+
+
+def _snake():
+    occ = np.zeros((1, 10, 30), bool)
+    occ[0, 0, :] = True
+    occ[0, 1:, -1] = True
+    occ[0, -1, ::2] = True
+    return occ
+
+
+def grid_case(name):
+    """(occupancy [Z, Y, X] bool, max_labels, max_objects)."""
+    if name == "dense":
+        return np.random.default_rng(0).random((3, 20, 24)) < 0.35, 128, 32
+    if name == "zigzag":
+        return _zigzag(), 16, 8
+    if name.startswith("boxes"):
+        rng = np.random.default_rng(11)
+        for _ in range(int(name[-1]) + 1):
+            occ = _box_grid(rng)
+        return occ, 64, 32
+    if name == "clamped":   # ~220 merged objects into 4 stats slots
+        return _box_grid(np.random.default_rng(11)), 64, 4
+    raise KeyError(name)
+
+
+GRIDS = ["dense", "zigzag", "boxes0", "boxes1", "boxes2", "clamped"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_segment(max_labels, max_objects):
+    return jax.jit(functools.partial(jseg.segment, max_labels=max_labels,
+                                     max_objects=max_objects))
+
+
+def _assert_sums_below_2_24(occ, merged_map, m):
+    ids = np.where(occ, np.minimum(merged_map, m - 1), m).reshape(-1)
+    zz, yy, xx = np.meshgrid(*[np.arange(s) for s in occ.shape],
+                             indexing="ij")
+    for c in (xx, yy, zz):
+        sums = np.bincount(ids, weights=c.reshape(-1), minlength=m + 1)
+        assert sums.max() < 2 ** 24
+
+
+@pytest.mark.parametrize("name", GRIDS)
+def test_segment_matches_jax(name):
+    """Every field of ``segment`` bit-equal to the jitted JAX program,
+    and the port's ``label_layers`` / ``layer_connections`` /
+    ``merge_labels`` equal to the JAX program's labels, connections and
+    merge table on the same grid."""
+    occ, l, m = grid_case(name)
+    j = _jax_segment(l, m)(occ.astype(np.uint8))
+    t = tseg.segment(torch.from_numpy(occ.astype(np.uint8)), l, m)
+    _assert_sums_below_2_24(occ, np.asarray(j.merged_map), m)
+    for f in jseg.SegmentationResult._fields:
+        a, b = np.asarray(getattr(j, f)), getattr(t, f).numpy()
+        assert a.dtype == b.dtype, (f, a.dtype, b.dtype)
+        np.testing.assert_array_equal(b, a, err_msg=f)
+    labels, num = tseg.label_layers(torch.from_numpy(occ), l)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(j.labels))
+    np.testing.assert_array_equal(num.numpy(), np.asarray(j.num_labels))
+    conn = tseg.layer_connections(labels, l)
+    np.testing.assert_array_equal(
+        conn.numpy(), np.asarray(jseg.layer_connections(j.labels, l)))
+    mr = tseg.merge_labels(conn, num, l)
+    np.testing.assert_array_equal(mr.merged_of_label.numpy(),
+                                  np.asarray(j.merged_of_label))
+    assert int(mr.num_merged) == int(j.num_merged)
+    assert t.iterations[0] >= 2 and t.iterations[1] >= 1
+    if name == "clamped":
+        assert int(t.num_merged) > m
+
+
+def test_label_layers_snake_matches_jax():
+    """A single-layer snake (the JAX ``segment`` needs two layers; its
+    ``layer_connections`` cannot reshape an empty stack, the port's can)."""
+    occ = _snake()
+    jl, jn = jseg.label_layers(jnp.asarray(occ), 64)
+    tl, tn = tseg.label_layers(torch.from_numpy(occ), 64)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    assert tuple(tseg.layer_connections(tl, 64).shape) == (0, 64, 64)
+    assert int(tseg.segment(torch.from_numpy(occ), 64, 8).num_merged) == \
+        int(jn[0])
+
+
+@pytest.mark.parametrize("name", ["boxes0", "boxes1", "boxes2", "clamped"])
+def test_segment_matches_native(need_native, name):
+    """The port's device program against the native host segmentation
+    (through the port's binding) with the same caps."""
+    occ, l, m = grid_case(name)
+    t = tseg.segment(torch.from_numpy(occ), l, m)
+    res = tnative.segment_grid(occ, l, m)
+    for f in ("labels", "num_labels", "merged_of_label", "voxel_count",
+              "vmin", "vmax"):
+        np.testing.assert_array_equal(res[f], getattr(t, f).numpy(),
+                                      err_msg=f)
+    assert res["num_merged"] == int(t.num_merged)
+    np.testing.assert_allclose(res["centroid"], t.centroid.numpy(),
+                               rtol=0, atol=1e-4)
+
+
+# --- objects + tracking ----------------------------------------------------
+
+ZYX = (7, 40, 48)
+CELL = (0.125, 0.125, 0.25)
+
+
+def map_kw(**kw):
+    base = dict(voxel_min=(0.0, 0.0, 0.0),
+                voxel_max=(ZYX[2] * CELL[0], ZYX[1] * CELL[1],
+                           ZYX[0] * CELL[2]),
+                voxel_size=CELL, cc_max_labels_per_layer=64, max_objects=32)
+    base.update(kw)
+    return base
+
+
+def scene(n=5, seed=5):
+    """``n`` frames of ``[Z, Y, X]`` occupancy: boxes drifting a cell a
+    frame, one growing, plus fresh speckle."""
+    rng = np.random.default_rng(seed)
+    z, y, x = ZYX
+    boxes = [(int(rng.integers(0, x - 16)), int(rng.integers(0, y - 14)),
+              int(rng.integers(3, 9)), int(rng.integers(3, 9)),
+              int(rng.integers(0, z - 3)), int(rng.integers(1, 4)))
+             for _ in range(6)]
+    for f in range(n):
+        occ = np.zeros(ZYX, bool)
+        for k, (x0, y0, w, h, z0, d) in enumerate(boxes):
+            w = w + f if k == 0 else w
+            occ[z0:z0 + d, y0 + f // 2:y0 + f // 2 + h, x0 + f:x0 + f + w] = 1
+        occ |= rng.random(ZYX) < 0.01
+        yield occ
+
+
+@pytest.mark.parametrize("detail", [False, True])
+def test_objects_and_tracks_match_jax(need_native, detail):
+    """``build_objects`` (native assembly) and ``track_objects`` over five
+    frames from one host segmentation: objects, tracks (filter states
+    included) and stats bit-equal."""
+    grid = TGrid.from_config(TCfg(**map_kw()))
+    jgrid = JGrid.from_config(JCfg(**map_kw()))
+    jtracks, ttracks = [], []
+    for occ in scene():
+        res = tnative.segment_grid(occ, 64, 32)
+        nm = res["num_merged"]
+        mask = None
+        if detail:
+            mask = np.zeros(nm, bool)
+            mask[: min(nm, 32)] = res["voxel_count"][: min(nm, 32)] > 6
+        kw = dict(labels=res["labels"], num_labels=res["num_labels"],
+                  merged_of_label=res["merged_of_label"], num_merged=nm,
+                  voxel_count=res["voxel_count"], centroid=res["centroid"],
+                  vmin=res["vmin"], vmax=res["vmax"], detail_mask=mask)
+        jo = jobj.build_objects(grid=jgrid, **kw)
+        to = tobj.build_objects(grid=grid, **kw)
+        assert_same(jo, to, "objects")
+        js = jtrk.track_objects(jo, jtracks, 0.04, 1 / 30, max_tracks=8)
+        ts = ttrk.track_objects(to, ttracks, 0.04, 1 / 30, max_tracks=8)
+        assert_same(js, ts, "stats")
+        assert_same(jtracks, ttracks, "tracks")
+    assert len(ttracks) > 0 and ttracks[0].age > 1
+
+
+def test_native_labeling_and_contours_match_jax(need_native):
+    """The port's ``cc_label`` and ``trace_contour`` bindings return what
+    the JAX package's bindings of the same library return, bit for bit."""
+    rng = np.random.default_rng(2)
+    img = rng.random((40, 50)) < 0.35
+    for a, b in zip(jnative.cc_label(img), tnative.cc_label(img)):
+        assert_same(np.asarray(a), np.asarray(b), "cc_label")
+    ring = np.zeros((15, 15), bool)
+    yy, xx = np.mgrid[0:15, 0:15]
+    r = np.hypot(yy - 7, xx - 7)
+    ring[(r > 4.5) & (r < 5.5)] = True
+    labels = tnative.cc_label(img)[0]
+    for mask in [ring] + [labels == k for k in (1, 2, 3)]:
+        ys, xs = np.nonzero(mask)
+        assert_same(jnative.trace_contour(mask, int(ys[0]), int(xs[0])),
+                    tnative.trace_contour(mask, int(ys[0]), int(xs[0])),
+                    "trace_contour")
+
+
+def test_objects_python_assembly_matches_jax(need_native, monkeypatch):
+    """With the native assembly reporting an overflow (``None``) both
+    packages assemble in Python, tracing contours natively: bit-equal."""
+    occ = next(scene())
+    res = tnative.segment_grid(occ, 64, 32)
+    kw = dict(labels=res["labels"], num_labels=res["num_labels"],
+              merged_of_label=res["merged_of_label"],
+              num_merged=res["num_merged"], voxel_count=res["voxel_count"],
+              centroid=res["centroid"], vmin=res["vmin"], vmax=res["vmax"])
+    monkeypatch.setattr(jnative, "assemble_objects", lambda *a, **k: None)
+    monkeypatch.setattr(tnative, "assemble_objects", lambda *a, **k: None)
+    jo = jobj.build_objects(grid=JGrid.from_config(JCfg(**map_kw())), **kw)
+    to = tobj.build_objects(grid=TGrid.from_config(TCfg(**map_kw())), **kw)
+    assert_same(jo, to, "objects")
+    assert sum(o.num_components for o in to) > 0
+
+
+def _inputs(occ, capacity):
+    """The fused step's mapping outputs for one frame, from the port's ops
+    on the CPU: flat u8 occupancy, packed bits, and the sparse tuple with
+    its dense fallback."""
+    flat = torch.from_numpy(occ.reshape(-1).astype(np.int32))
+    bits = occupancy_bitmap(flat)
+    sparse = occupancy_bitmap_sparse(flat, capacity)
+    return flat.to(torch.uint8), bits, tuple(sparse) + (bits,)
+
+
+ENTRIES = ("process", "process_packed", "process_sparse",
+           "process_sparse", "process_sparse")
+
+
+@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("detail_min_area", [0.0, -1.0])
+def test_mapping_pipeline_matches_jax(need_native, backend,
+                                      detail_min_area):
+    """Five frames through ``process``, ``process_packed`` and
+    ``process_sparse`` (frame 3 overflows its 4-block capacity and takes
+    the dense fallback) of one pipeline each, so tracks evolve:
+    ``MappingResult``s bit-equal to the JAX pipeline's."""
+    kw = map_kw(segmentation_backend=backend,
+                mapping_detail_min_area=detail_min_area)
+    tp = MappingPipeline(TCfg(**kw), TGrid.from_config(TCfg(**kw)), "cpu")
+    jp = JPipeline(JCfg(**kw), JGrid.from_config(JCfg(**kw)))
+    assert tp.backend == jp.backend == backend
+    for f, (occ, entry) in enumerate(zip(scene(), ENTRIES)):
+        cap = 4 if f == 3 else 256
+        u8, bits, sparse = _inputs(occ, cap)
+        if entry == "process":
+            t_arg, j_arg = u8, jnp.asarray(u8.numpy())
+        elif entry == "process_packed":
+            t_arg, j_arg = bits, bits.numpy()
+        else:
+            t_arg, j_arg = sparse, tuple(a.numpy() for a in sparse)
+            assert (int(sparse[3]) > cap) == (f == 3)
+        t_res = getattr(tp, entry)(t_arg, dt=0.05)
+        j_res = getattr(jp, entry)(j_arg, dt=0.05)
+        assert_same(j_res, t_res, f"frame {f} {entry}")
+        assert t_res.num_merged > 2
+    assert len(t_res.tracks) > 0
+    if backend == "host":
+        assert len(tp.last_phase_ms) == 3
+
+
+def test_sparse_overflow_without_fallback_raises():
+    kw = map_kw(segmentation_backend="device")
+    tp = MappingPipeline(TCfg(**kw), TGrid.from_config(TCfg(**kw)), "cpu")
+    _, _, sparse = _inputs(next(scene()), 4)
+    with pytest.raises(ValueError, match="overflowed its capacity"):
+        tp.process_sparse(sparse[:4])
+    with pytest.raises(ValueError, match="no dense fallback"):
+        tp.process_sparse(sparse[:4] + (None,))
+
+
+def test_pipeline_needs_explicit_device_and_known_backend():
+    kw = map_kw(segmentation_backend="device")
+    grid = TGrid.from_config(TCfg(**kw))
+    with pytest.raises(TypeError):
+        MappingPipeline(TCfg(**kw), grid)
+    with pytest.raises(ValueError, match="segmentation_backend"):
+        MappingPipeline(TCfg(**map_kw(segmentation_backend="gpu")), grid,
+                        "cpu")
+
+
+def test_host_backend_raises_without_native(monkeypatch):
+    """No silent switch to the device program when the library is
+    missing (the JAX pipeline switches)."""
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_tried", True)
+    monkeypatch.setattr(tnative, "_error", "test: no library")
+    kw = map_kw(segmentation_backend="host")
+    with pytest.raises(RuntimeError, match="no library"):
+        MappingPipeline(TCfg(**kw), TGrid.from_config(TCfg(**kw)), "cpu")
+    auto = MappingPipeline(TCfg(**map_kw()), TGrid.from_config(TCfg(
+        **map_kw())), "cpu")
+    assert auto.backend == "device"
+
+
+# --- AsyncMappingWorker ----------------------------------------------------
+
+class _Cfg:
+    tracking_dt = 1.0 / 30.0
+
+
+class _FakePipeline:
+    """Records what each cycle got; ``gate`` (if set) holds a cycle until
+    released; ``fail`` makes a cycle raise."""
+    cfg = _Cfg()
+
+    def __init__(self, gate=None, fail=False):
+        self.seen, self.dts = [], []
+        self.gate, self.fail = gate, fail
+        self.entered = threading.Event()
+
+    def process(self, occ, dt=None):
+        self.entered.set()
+        if self.gate is not None:
+            assert self.gate.wait(10)
+        if self.fail:
+            raise RuntimeError(f"cycle failed on {occ}")
+        self.seen.append(occ)
+        self.dts.append(dt)
+        return occ
+
+    process_packed = process
+
+
+def _wait(pred, timeout=10.0):
+    t0 = time.monotonic()
+    while not pred() and time.monotonic() - t0 < timeout:
+        time.sleep(0.005)
+    assert pred()
+
+
+def test_async_worker_passes_measured_wallclock_dt():
+    """As ``tests/test_mapping_core.py:308``: the first cycle gets the
+    nominal dt, the next the measured wall time since it."""
+    pipe = _FakePipeline()
+    w = AsyncMappingWorker(pipe)
+    try:
+        w.submit("grid0")
+        _wait(lambda: w.cycles >= 1)
+        time.sleep(0.25)
+        w.submit("grid1")
+        _wait(lambda: w.cycles >= 2)
+    finally:
+        w.close()
+    assert pipe.seen == ["grid0", "grid1"]
+    assert pipe.dts[0] == _Cfg.tracking_dt
+    assert 0.2 <= pipe.dts[1] <= AsyncMappingWorker.dt_max
+    assert not w._thread.is_alive()
+
+
+def test_async_worker_replaces_stale_submission():
+    """Queue depth 1, drop-oldest: while a cycle runs, a newer submission
+    replaces the one waiting, and the worker then maps the newest."""
+    gate = threading.Event()
+    pipe = _FakePipeline(gate=gate)
+    w = AsyncMappingWorker(pipe, packed=True)
+    try:
+        w.submit("a")
+        assert pipe.entered.wait(10)
+        w.submit("b")
+        w.submit("c")
+        gate.set()
+        _wait(lambda: w.cycles >= 2)
+        time.sleep(0.2)
+    finally:
+        w.close()
+    assert pipe.seen == ["a", "c"] and w.cycles == 2
+    assert w.latest() == "c"
+
+
+def test_async_worker_under_fast_thread_switching():
+    """500 submissions under a 1 us thread switch interval: the worker maps
+    an increasing subsequence of them that ends with the last one, and
+    counts each cycle once."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    pipe = _FakePipeline()
+    w = AsyncMappingWorker(pipe)
+    try:
+        for k in range(500):
+            w.submit(k)
+        _wait(lambda: 499 in pipe.seen)
+    finally:
+        w.close()
+        sys.setswitchinterval(old)
+    assert not w._thread.is_alive()
+    assert pipe.seen == sorted(set(pipe.seen)) and pipe.seen[-1] == 499
+    assert w.cycles == len(pipe.seen) and w.latest() == 499
+
+
+def test_async_worker_surfaces_its_exception():
+    pipe = _FakePipeline(fail=True)
+    w = AsyncMappingWorker(pipe)
+    w.submit("bad")
+    _wait(lambda: not w._thread.is_alive())
+    with pytest.raises(RuntimeError, match="cycle failed on bad"):
+        w.latest()
+    with pytest.raises(RuntimeError, match="cycle failed on bad"):
+        w.submit("next")
+    with pytest.raises(RuntimeError, match="cycle failed on bad"):
+        w.close()
+    assert w.cycles == 0
+
+
+def test_async_worker_sparse_cycles_match_sync(need_native):
+    """The worker on real sparse submissions (CPU tensors): each cycle's
+    result equals a synchronous pipeline's on the same frame and dt."""
+    kw = map_kw(segmentation_backend="host")
+    grid = TGrid.from_config(TCfg(**kw))
+    ref = MappingPipeline(TCfg(**kw), grid, "cpu")
+    pipe = MappingPipeline(TCfg(**kw), grid, "cpu")
+    dts = []
+    orig = pipe.process_sparse
+
+    def recording(sparse, dt=None):
+        dts.append(dt)
+        return orig(sparse, dt=dt)
+    pipe.process_sparse = recording
+    w = AsyncMappingWorker(pipe)
+    try:
+        for f, occ in enumerate(scene(3)):
+            sparse = _inputs(occ, 256)[2]
+            w.submit(sparse)
+            _wait(lambda: w.cycles >= f + 1)
+            assert_same(w.latest(), ref.process_sparse(sparse, dt=dts[f]),
+                        f"cycle {f}")
+    finally:
+        w.close()
+    assert dts[0] == TCfg().tracking_dt and len(ref.tracks) > 0
