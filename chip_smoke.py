@@ -15,26 +15,18 @@ each:
 3. link (the main path): ``bench.py:120-182``'s configuration as it is
    (p4 temporal depth link with hysteresis, delta-coded lidar, 448k
    level-1 partials) with ``FusionEngine(cfg, "cuda", pipeline_depth=1)``,
-   24 frames then ``flush()``; every kernel's launch counter must rise by
-   its expected count each step; frame 0 must be an I-keyframe and the
-   rest p4 P-frames; the partials must stay within capacity; the last
+   24 frames then ``flush()``; every kernel's launch counter, counted from
+   0 before the run, must rise by its expected count each step (kernel
+   4's by none: its launches per frame are measured here); frame 0 must
+   be an I-keyframe and the rest p4 P-frames; the partials must stay within capacity; the last
    frame re-run with the plain twins from the same state, and a
    ``pipeline_depth=0`` engine on the same frames, must give equal
    outputs; so must a small rig of this configuration on the card and on
    the CPU;
-4. kernels: each kernel's inputs are recorded from one frame of the link
-   phase; the kernel is checked against its plain PyTorch twin on them
-   (exact) and both are timed (CUDA events, median of 20 runs after 3
-   warm-up runs);
-5. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
-   path) on the recorded frame's masked metric depth, against its twin
-   (exact in all five outputs), timed beside its twin and the engine's
-   chain (unproject, crop, cell index, quantize, level-1 segreduce), and
-   the level-2 closure against that chain;
-6. raw link: the engine on the raw depth link (``depth_link_codec="none"``,
+4. raw link: the engine on the raw depth link (``depth_link_codec="none"``,
    768k partials: the raw series has more level-1 runs), 8 frames, with
    the same launch, plain-twin and small-rig checks;
-7. mapping (``bench.py:443-537``, field for field): a fresh link engine
+5. mapping (``bench.py:443-537``, field for field): a fresh link engine
    with ``eng.mapping = MappingPipeline(cfg.replace(
    mapping_detail_min_area=-1.0), eng.grid, "cuda")``, 12 frames to fill
    the decaying history; a warm ``process_sparse`` cycle on the last
@@ -48,9 +40,27 @@ each:
    a result, and every step must launch the engine kernels. The same
    paced loop with mapping off runs before and after it, for the fused
    frame rate without the worker.
+6. kernels (after the loops, so that ``torch.profiler``, which times
+   them, cannot touch the host-bound loops): each kernel's inputs are
+   recorded from one frame of the link phase; the kernel is checked against its plain PyTorch twin on them
+   (exact). Per frame (segreduce: both levels) it prints the kernel's
+   device ms (the summed device activity of a call, kernels and fills,
+   from ``torch.profiler`` over 20 calls after 3 warm-ups: no host gaps),
+   its ``call_ms`` (CUDA events around one call, host work before the
+   launches included, median of 20), its ``bound_ms`` (the bytes the
+   call must move over 3.35 TB/s, or its float32 operations over 67
+   TFLOP/s, whichever is larger), its launches per frame, the twin's
+   device and call ms, and for compact ``library_ms``, the device ms of
+   ``rows[flags]``, the one PyTorch call that computes the same rows;
+7. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
+   path) on the recorded frame's masked metric depth, against its twin
+   (exact in all five outputs), timed as in phase 6 beside its twin and
+   the engine's chain (unproject, crop, cell index, quantize, level-1
+   segreduce), and the level-2 closure against that chain.
 
-Then one JSON line with the kernels' names, sources, launch counts, errors
-and times, the ``nvidia-smi`` line, and, last, ``{"ok": true, "device":
+Then one JSON line with the kernels' names, sources, launch counts (and
+launches per frame), errors, device, call, twin, bound and library times,
+the ``nvidia-smi`` line, and, last, ``{"ok": true, "device":
 ...}``. Any failure is an uncaught exception and a non-zero exit; without a
 CUDA device it exits non-zero before printing any result.
 """
@@ -74,7 +84,9 @@ MAP_WARM_FRAMES = 12   # the decaying history (lifetime 10) at steady state
 MAP_FRAMES = 60        # the paced mapping-on loop
 MAP_LAG = 4            # frames between a step and its drain (bench.py:500)
 RECORD_FRAME = 6       # the recorded step's frame (lidar window full)
-EXPECTED_LAUNCHES = {"segreduce": 2, "flying_pixels": 1, "compact": 1}
+# launches of each kernel in one engine step (kernel 4 is not on its path)
+EXPECTED_LAUNCHES = {"segreduce": 2, "flying_pixels": 1, "compact": 1,
+                     "fused_unproject_rle": 0}
 ENGINE_KERNELS = ("segreduce", "flying_pixels", "compact")
 KERNELS = ENGINE_KERNELS + ("fused_unproject_rle",)
 REPLACES = {
@@ -221,7 +233,8 @@ def gpu_line():
 
 
 def cuda_ms(torch, fn, reps=20, warm=3):
-    """Median CUDA-event time of ``fn`` in ms."""
+    """Median CUDA-event time of one call of ``fn`` in ms: host work
+    before the launches included (a call's ``call_ms``)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -235,6 +248,72 @@ def cuda_ms(torch, fn, reps=20, warm=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(torch, fn, reps=20, warm=3):
+    """Device time of one call of ``fn`` in ms: the summed durations of
+    the device activities (kernels, fills, copies) that ``reps`` calls
+    launch, from ``torch.profiler``, over ``reps``, after ``warm``
+    warm-up calls. Host gaps between launches are not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return us / 1e3 / reps
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# full 700 W): HBM3 bytes/s and float32 operations/s outside the tensor
+# cores. A kernel's bound is the larger of its bytes (each input read
+# once, each output written once) and its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def roofline(nbytes, ops):
+    """(bound ms, "bytes" or "operations") of a call that must move
+    ``nbytes`` and do ``ops`` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work_of(name, args, out):
+    """(bytes, float32 operations) one call of engine kernel ``name``
+    needs on these inputs, from its arguments and its (exact) output."""
+    if name == "segreduce":
+        keys, vals, cap, sentinel = args[:4]
+        d = vals.shape[1]
+        valid = int((keys != sentinel).sum())
+        # every key and the valid positions' rows in (a sentinel's values
+        # are never read); the static-capacity key and sum rows and the
+        # two counts out; one add per valid element and column
+        return (keys.nbytes + valid * 4 * d + cap * 4 * (1 + d) + 8,
+                valid * d)
+    if name == "flying_pixels":
+        pts, mask, fs, rot45 = args[0], args[1], args[4], args[6]
+        pix = mask.numel()
+        # points and mask in, mask out; per pixel ~19 operations for the
+        # range gate and the view ray and ~30 per ring test, counted at
+        # their most (every ring tested): still far below the bytes
+        rings = fs * (2 if rot45 else 1)
+        return pts.nbytes + 2 * pix + 8, pix * (19 + 30 * rings)
+    if name == "compact":
+        words, mask, cap = args[0], args[1], args[2]
+        d = words.shape[1]
+        moved = min(int(out[2]), cap)     # rows the output takes
+        return mask.nbytes + moved * 4 * d + cap * 4 * d + 8, mask.numel()
+    raise KeyError(name)
 
 
 def record_calls(mods, run):
@@ -591,7 +670,7 @@ def main():
     from ros_gpu_depthmap_fusion_tpu_torch.utils import native
 
     kmods = {"segreduce": segreduce, "flying_pixels": flying_pixels,
-             "compact": compact}
+             "compact": compact, "fused_unproject_rle": fused_unproject_rle}
     wrappers = {"segreduce": (segreduce.segreduce, segreduce.segreduce_plain),
                 "flying_pixels": (flying_pixels.filter_flying_pixels,
                                   flying_pixels.filter_flying_pixels_plain),
@@ -651,9 +730,10 @@ def main():
         torch, eng, scene, intr, LINK_FRAMES, kmods,
         step_tap=keep_last(last_step), record=(RECORD_FRAME, record_mods))
     launches = {n: m.launches for n, m in kmods.items()}
-    for n in ENGINE_KERNELS:
+    for n in KERNELS:
         if launches[n] != EXPECTED_LAUNCHES[n] * LINK_FRAMES:
             raise AssertionError(f"link: {n} launched {launches[n]} times")
+    per_frame = {n: launches[n] / LINK_FRAMES for n in KERNELS}
     if len(outs) != LINK_FRAMES:
         raise AssertionError(f"link: {len(outs)} outputs")
     if not (isinstance(bits[0], int) and bits[0] > 0) \
@@ -700,15 +780,47 @@ def main():
           f"native {native._LIB_PATH} | plain-twin step equal; pipelined "
           f"== sync; small rig card == cpu (last bits {sm_bits}) | {gpu}",
           flush=True)
+    grid = eng.grid
+    del eng, outs
 
-    # -- 4. each engine kernel against its twin on the recorded frame --
+    # -- 4. the raw link (PR 1's engine phase, fewer frames) --
+    raw = bench_config(FusionConfig)
+    eng = engmod.FusionEngine(raw, device="cuda")
+    for m in kmods.values():
+        m.launches = 0
+    last_step = []
+    outs, _, raw_ms, _, _ = run_engine(
+        torch, eng, scene, intr, RAW_FRAMES, kmods,
+        step_tap=keep_last(last_step))
+    raw_launches = {n: m.launches for n, m in kmods.items()}
+    raw_partials = check_frame_outputs(raw, eng, outs, "raw")
+    ref = replay_plain(engmod, eng, last_step[0])
+    assert_outputs_equal(torch, outs[-1], ref, "raw last frame vs the "
+                         "plain-twin step")
+    small_rig_equal(torch, engmod, bench_config, FusionConfig, transforms,
+                    PinholeIntrinsics, 0, "raw")
+    print(f"[raw] depth_link_codec='none', {RAW_FRAMES} frames: "
+          f"{raw_ms:.2f} ms/frame (frames 4.., ends with a synchronize) | "
+          f"level-1 partials max {raw_partials} of "
+          f"{raw.voxelize_partials_capacity} | launches {raw_launches} | "
+          f"plain-twin step equal; small rig card == cpu | {gpu}",
+          flush=True)
+    del eng, outs, ref
+
+    # -- 5. mapping on --
+    mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu)
+
+    # -- 6. each engine kernel against its twin on the recorded frame --
+    # (after the loops, so that torch.profiler cannot touch them)
     results = {}
     for name in ENGINE_KERNELS:
         kern, twin = wrappers[name]
         if len(calls.get(name, ())) != EXPECTED_LAUNCHES[name]:
             raise AssertionError(f"{name}: recorded "
                                  f"{len(calls.get(name, ()))} calls")
-        errs, ms, plain_ms, shapes = [], 0.0, 0.0, []
+        errs, shapes, per_call = [], [], []
+        tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, plain_call_ms=0.0,
+                   bound_ms=0.0)
         for a, k, _ in calls[name]:
             got = kern(*a, **k)
             ref = twin(*a, **k)
@@ -718,25 +830,47 @@ def main():
                 raise AssertionError(f"{name}: kernel != twin, max abs "
                                      f"err {err} (exact required)")
             errs.append(err)
-            ms += cuda_ms(torch, lambda: kern(*a, **k))
-            plain_ms += cuda_ms(torch, lambda: twin(*a, **k))
+            nbytes, ops = work_of(name, a, ref)
+            bound, bound_by = roofline(nbytes, ops)
+            one = dict(ms=device_ms(torch, lambda: kern(*a, **k)),
+                       call_ms=cuda_ms(torch, lambda: kern(*a, **k)),
+                       plain_ms=device_ms(torch, lambda: twin(*a, **k)),
+                       plain_call_ms=cuda_ms(torch, lambda: twin(*a, **k)),
+                       bound_ms=bound)
+            for key in tot:
+                tot[key] += one[key]
+            per_call.append(f"{one['ms']:.4f}/{bound:.4f}")
             shapes.append("x".join(map(str, a[0].shape)))
-        results[name] = dict(max_abs_err=max(errs), ms=ms,
-                             plain_ms=plain_ms)
+        library = None
+        if name == "compact":
+            # one PyTorch call computes the same rows: boolean indexing
+            # (its nonzero syncs the host; device time counts no gaps)
+            words, mask = calls[name][0][0][:2]
+            library = device_ms(torch, lambda: words[mask])
+        results[name] = dict(max_abs_err=max(errs), bound_by=bound_by,
+                             library_ms=library, **tot)
         print(f"[kernel] {name} on {'+'.join(shapes)} (link frame "
-              f"{RECORD_FRAME}): max_abs_err {max(errs)} | kernel "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms per frame "
-              f"({len(calls[name])} call(s)) | {gpu}", flush=True)
+              f"{RECORD_FRAME}), per frame ({len(calls[name])} call(s), "
+              f"launches_per_frame {per_frame[name]:g}): max_abs_err "
+              f"{max(errs)} | device ms {tot['ms']:.4f} (per call device/"
+              f"bound {', '.join(per_call)}) | call_ms "
+              f"{tot['call_ms']:.4f} | bound_ms {tot['bound_ms']:.4f} "
+              f"({bound_by}, {tot['bound_ms'] / tot['ms']:.2f} of the "
+              f"bound reached) | plain device {tot['plain_ms']:.4f} ms, "
+              f"call {tot['plain_call_ms']:.4f} ms | library_ms "
+              f"{'none' if library is None else f'{library:.4f}'} | {gpu}",
+              flush=True)
 
-    # -- 5. kernel 4, the fused front, on the recorded frame --
+    # -- 7. kernel 4, the fused front, on the recorded frame --
     (depth_u16, k_intr, k_tfw, k_tfc, scale), _, _ = calls["unproject"][0]
     fp_mask = calls["flying_pixels"][0][2].reshape(depth_u16.shape)
     depth_masked = depth_u16 * fp_mask
     depth_m = (depth_u16.to(torch.float32) * float(scale)
                * fp_mask.to(torch.float32)).contiguous()
-    grid, cap = eng.grid, cfg.voxelize_partials_capacity
+    cap = cfg.voxelize_partials_capacity
     fargs = (depth_m, k_intr, k_tfw, k_tfc, grid, cfg.crop_min,
              cfg.crop_max, cap)
+    # kernel 4's own path: this call, counted from 0
     fused_unproject_rle.launches = 0
     got = fused_unproject_rle.unproject_voxelize_l1(*fargs)
     torch.cuda.synchronize()
@@ -775,60 +909,51 @@ def main():
     moved = int((lf[:, 3] - lc[:, 3]).abs().sum()) // 2
     sum_err = float((lf[same, :3] - lc[same, :3]).abs().max())
     valid_diff = int(got[4]) - int(cm.sum())
-    f_ms = cuda_ms(torch, lambda: fused_unproject_rle.unproject_voxelize_l1(
-        *fargs))
-    f_plain_ms = cuda_ms(
-        torch, lambda: fused_unproject_rle.unproject_voxelize_l1_plain(
-            *fargs))
-    chain_ms = cuda_ms(torch, chain)
-    results["fused_unproject_rle"] = dict(max_abs_err=err, ms=f_ms,
-                                          plain_ms=f_plain_ms)
+    def fused():
+        return fused_unproject_rle.unproject_voxelize_l1(*fargs)
+
+    def fused_plain():
+        return fused_unproject_rle.unproject_voxelize_l1_plain(*fargs)
+    f_ms, f_call_ms = device_ms(torch, fused), cuda_ms(torch, fused)
+    f_plain_ms = device_ms(torch, fused_plain)
+    chain_ms, chain_call_ms = device_ms(torch, chain), cuda_ms(torch, chain)
+    # depth and the camera tables in; the static-capacity key and sum rows
+    # and three counts out. Per pixel ~30 operations (unprojection, crop
+    # transform and test), per valid point ~65 more (world transform, cell,
+    # quantization, sums), counted from csrc/fused_unproject_rle.cu
+    f_bytes = (depth_m.nbytes + k_intr.nbytes + k_tfw.nbytes + k_tfc.nbytes
+               + cap * 4 * 5 + 12)
+    f_bound, f_bound_by = roofline(
+        f_bytes, depth_m.numel() * 30 + int(got[4]) * 65)
+    results["fused_unproject_rle"] = dict(
+        max_abs_err=err, ms=f_ms, call_ms=f_call_ms, plain_ms=f_plain_ms,
+        bound_ms=f_bound, bound_by=f_bound_by, library_ms=None)
     shape = "x".join(map(str, depth_m.shape))
     print(f"[fused] unproject_voxelize_l1 on {shape} (link frame "
           f"{RECORD_FRAME}, masked metric "
           f"depth), capacity {cap}: max_abs_err {err} in all five outputs | "
           f"runs {int(got[3])} (chain's level 1: {int(ct)}), valid points "
-          f"{int(got[4])} | kernel {f_ms:.4f} ms vs plain {f_plain_ms:.4f} "
-          f"ms vs the engine's chain {chain_ms:.4f} ms | level-2 closure "
+          f"{int(got[4])} | launches_per_frame "
+          f"{per_frame['fused_unproject_rle']:g} on the link | device ms "
+          f"{f_ms:.4f} | "
+          f"call_ms {f_call_ms:.4f} | bound_ms {f_bound:.4f} ({f_bound_by}, "
+          f"{f_bound / f_ms:.2f} of the bound reached) | plain device "
+          f"{f_plain_ms:.4f} ms | library_ms none | the engine's chain: "
+          f"device {chain_ms:.4f} ms, call {chain_call_ms:.4f} ms | level-2 "
+          f"closure "
           f"vs the chain: {cells_differ} cells differ in occupancy, "
           f"{counts_differ} in count ({moved} points changed cell), max sum "
           f"diff {sum_err:.1f} quantization steps where counts agree, "
           f"valid-count diff {valid_diff} | launches "
           f"{launches['fused_unproject_rle']} | {gpu}", flush=True)
-    del calls, eng, outs, got, ref
-
-    # -- 6. the raw link (PR 1's engine phase, fewer frames) --
-    raw = bench_config(FusionConfig)
-    eng = engmod.FusionEngine(raw, device="cuda")
-    for m in kmods.values():
-        m.launches = 0
-    last_step = []
-    outs, _, raw_ms, _, _ = run_engine(
-        torch, eng, scene, intr, RAW_FRAMES, kmods,
-        step_tap=keep_last(last_step))
-    raw_launches = {n: m.launches for n, m in kmods.items()}
-    raw_partials = check_frame_outputs(raw, eng, outs, "raw")
-    ref = replay_plain(engmod, eng, last_step[0])
-    assert_outputs_equal(torch, outs[-1], ref, "raw last frame vs the "
-                         "plain-twin step")
-    small_rig_equal(torch, engmod, bench_config, FusionConfig, transforms,
-                    PinholeIntrinsics, 0, "raw")
-    print(f"[raw] depth_link_codec='none', {RAW_FRAMES} frames: "
-          f"{raw_ms:.2f} ms/frame (frames 4.., ends with a synchronize) | "
-          f"level-1 partials max {raw_partials} of "
-          f"{raw.voxelize_partials_capacity} | launches {raw_launches} | "
-          f"plain-twin step equal; small rig card == cpu | {gpu}",
-          flush=True)
-    del eng, outs, ref
-
-    # -- 7. mapping on --
-    mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu)
+    del calls, got, ref
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
-                    max_abs_err=results[name]["max_abs_err"],
-                    ms=results[name]["ms"],
-                    plain_ms=results[name]["plain_ms"])
+                    launches_per_frame=per_frame[name],
+                    **{k: results[name][k] for k in (
+                        "max_abs_err", "ms", "call_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")})
                for name in KERNELS]
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched: {kernels}")

@@ -135,6 +135,10 @@ fused_emit_kernel(const float* __restrict__ depth,
 
 }  // namespace fusion
 
+// Scratch size (int32 entries) of tile_counts / tile_offsets for a stream
+// of n positions (the two-pass scan of scan.cuh).
+extern "C" int fusion_scan_tiles(int n) { return fusion::num_tiles(n); }
+
 // depth [c, h, w] float32; params [c, 32] and consts [32] float32 (layout
 // above); the stream has n = c * h * wp positions. tile_counts and
 // tile_offsets: scratch of fusion_scan_tiles(n) int32 each; counts [3]

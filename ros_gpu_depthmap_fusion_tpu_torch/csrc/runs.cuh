@@ -1,12 +1,12 @@
-// Run-length reduction machinery shared by segreduce.cu and
-// fused_unproject_rle.cu: one output row (key, per-run column sums) for
-// every run of consecutive equal keys of a stream, runs in stream order.
+// Two-pass run-length reduction machinery of fused_unproject_rle.cu: one
+// output row (key, per-run column sums) for every run of consecutive equal
+// keys of a stream, runs in stream order. (segreduce.cu runs on the
+// single-pass reduce_by_key.cuh, which takes the same SOURCE.)
 //
 // A kernel supplies the stream as a SOURCE with two device methods:
 //   int key(int i)               the key at stream position i;
 //   int elem(int i, float* v)    the key, and its D values written to v.
-// segreduce.cu reads them from arrays; fused_unproject_rle.cu computes
-// them from a depth image.
+// fused_unproject_rle.cu computes them from a depth image.
 //
 // Run rule (the contract of the JAX package's rle_body,
 // ops/pallas/segreduce.py:63): the sentinel key is ignored and ends runs;

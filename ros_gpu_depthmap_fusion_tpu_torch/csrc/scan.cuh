@@ -1,5 +1,5 @@
-// Shared block scan for the scan-and-scatter kernels (segreduce.cu,
-// compact.cu).
+// Block scan and two-pass tile scan of runs.cuh (fused_unproject_rle.cu).
+// segreduce.cu and compact.cu scan in one pass with lookback.cuh.
 //
 // A stream of N elements is cut into tiles of kTile = kThreads * kItems
 // elements; thread t of a tile owns the kItems CONSECUTIVE elements

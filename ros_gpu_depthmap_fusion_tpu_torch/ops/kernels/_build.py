@@ -3,7 +3,8 @@ them with ``ctypes``.
 
 All ``csrc/*.cu`` files compile into one shared library with a plain C
 interface, under ``ros_gpu_depthmap_fusion_tpu_torch/_build/``, named by a
-hash of the sources, the flags and the compiler. A later call in the same
+hash of the sources, the flags and the compiler: one ``nvcc -c`` per
+source, all started together, then one link. A later call in the same
 or another process loads the cached library. Nothing outside the checkout
 is used except the CUDA toolkit (``$CUDA_HOME/bin/nvcc``, ``nvcc`` on the
 ``PATH``, or ``/usr/local/cuda/bin/nvcc``).
@@ -33,8 +34,7 @@ BUILD_DIR = PKG_DIR / "_build"
 # multiply-add changes the last ulp of coordinates, which moves points on
 # cell and crop boundaries). No fast-math: division and sqrt stay IEEE.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -75,17 +75,35 @@ def _build() -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = False
     if not lib_path.exists():
-        tmp = BUILD_DIR / f".tmp_{tag}_{os.getpid()}.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-               *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log_path.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
+        tmp = BUILD_DIR / f".tmp_{tag}_{os.getpid()}"
+        objs = [Path(f"{tmp}_{src.stem}.o") for src in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+                 str(obj), str(src)] for src, obj in zip(cu, objs)]
+        cmds.append([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-shared", "-o", f"{tmp}.so", *map(str, objs)])
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds[:-1]]
+        runs = []
+        for c, p in zip(cmds, procs):
+            out, err = p.communicate()
+            runs.append((c, p.returncode, out, err))
+        if all(rc == 0 for _, rc, _, _ in runs):
+            proc = subprocess.run(cmds[-1], capture_output=True, text=True)
+            runs.append((cmds[-1], proc.returncode, proc.stdout,
+                         proc.stderr))
+        log_path.write_text("".join(" ".join(c) + "\n" + out + err
+                                    for c, _, out, err in runs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        failed = [(c, rc, err) for c, rc, _, err in runs if rc != 0]
+        if failed or len(runs) != len(cmds):
+            Path(f"{tmp}.so").unlink(missing_ok=True)
+            c, rc, err = failed[0]
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building the CUDA "
-                f"kernels:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
+                f"nvcc failed ({rc}) building the CUDA kernels "
+                f"({c[-1]}):\n{err}")
+        os.replace(f"{tmp}.so", lib_path)
         built = True
     lib = ctypes.CDLL(str(lib_path))
     lib.fusion_scan_tiles.argtypes = [ctypes.c_int]
@@ -143,3 +161,17 @@ def ptr(t) -> ctypes.c_void_p:
 def scan_tiles(n: int) -> int:
     """Scratch entries per tile-count array for an ``n``-element scan."""
     return library().fusion_scan_tiles(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_fn(entry: str):
+    fn = getattr(library(), entry + "_scratch_bytes")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def scratch_bytes(entry: str, n: int) -> int:
+    """Bytes of look-back scratch the C entry ``entry`` needs for ``n``
+    positions (``<entry>_scratch_bytes``), at least 16."""
+    return max(int(_scratch_fn(entry)(n)), 16)

@@ -20,7 +20,7 @@ launches = 0
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+             ctypes.c_void_p, ctypes.c_void_p)
 
 
 def compact_plain(words: torch.Tensor, mask: torch.Tensor, capacity: int):
@@ -63,20 +63,21 @@ def compact_rows(words: torch.Tensor, mask: torch.Tensor, capacity: int):
             or not mask.is_contiguous() or mask.device != words.device:
         raise ValueError("compact_rows: mask must be a contiguous [N] bool "
                          "tensor on the words' device")
-    if d < 1 or capacity < 1 or n * d >= 2 ** 31:
+    if d < 1 or capacity < 1 or n > 2 ** 30 \
+            or max(n, capacity) * d >= 2 ** 31:
         raise ValueError(f"compact_rows: unsupported D={d}, "
                          f"capacity={capacity}, N={n}")
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import _build
     fn = _build.function("fusion_compact", _ARGTYPES)
     dev = words.device
-    out = torch.zeros((capacity, d), dtype=torch.int32, device=dev)
-    tiles = max(_build.scan_tiles(n), 1)
-    scratch = torch.empty((2, tiles), dtype=torch.int32, device=dev)
+    # the kernel writes every row: flagged rows below the count, zeros past
+    out = torch.empty((capacity, d), dtype=torch.int32, device=dev)
+    scratch = torch.empty((_build.scratch_bytes("fusion_compact", n),),
+                          dtype=torch.uint8, device=dev)
     counts = torch.empty((2,), dtype=torch.int32, device=dev)
     p = _build.ptr
     status = fn(p(words), p(mask.view(torch.uint8)), n, d, capacity,
-                p(scratch[0]), p(scratch[1]), p(counts), p(out),
-                _build.stream_ptr(words))
+                p(scratch), p(counts), p(out), _build.stream_ptr(words))
     _build.check(status, "compact_rows")
     global launches
     launches += 1

@@ -23,7 +23,7 @@ launches = 0
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p)
+             ctypes.c_void_p)
 MAX_COLS = 7
 
 
@@ -96,22 +96,23 @@ def segreduce(keys: torch.Tensor, vals: torch.Tensor, capacity: int,
                          "float32 tensor on the keys' device, got "
                          f"{vals.dtype} {tuple(vals.shape)} {vals.device}")
     d = vals.shape[1]
-    if not 1 <= d <= MAX_COLS or capacity < 1 or n >= 2 ** 31:
+    if not 1 <= d <= MAX_COLS or capacity < 1 or n > 2 ** 30:
         raise ValueError(f"segreduce: unsupported D={d}, "
                          f"capacity={capacity}, N={n}")
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import _build
     fn = _build.function("fusion_segreduce", _ARGTYPES)
     dev = keys.device
-    out_keys = torch.full((capacity,), sentinel, dtype=torch.int32,
-                          device=dev)
-    out_sums = torch.zeros((capacity, d), dtype=torch.float32, device=dev)
-    tiles = max(_build.scan_tiles(n), 1)
-    scratch = torch.empty((2, tiles), dtype=torch.int32, device=dev)
+    # the kernel writes every row: runs below the count, the sentinel and
+    # zeros past it
+    out_keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
+    out_sums = torch.empty((capacity, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty((_build.scratch_bytes("fusion_segreduce", n),),
+                          dtype=torch.uint8, device=dev)
     counts = torch.empty((2,), dtype=torch.int32, device=dev)
     p = _build.ptr
     status = fn(p(keys), p(vals), n, d, int(sentinel), int(force_break),
-                capacity, p(scratch[0]), p(scratch[1]), p(counts),
-                p(out_keys), p(out_sums), _build.stream_ptr(keys))
+                capacity, p(scratch), p(counts), p(out_keys), p(out_sums),
+                _build.stream_ptr(keys))
     _build.check(status, "segreduce")
     global launches
     launches += 1

@@ -19,6 +19,7 @@ CPU parity tests of the mapping and the component, which import it.
 """
 
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -95,21 +96,27 @@ def test_segreduce_kernel_equals_twin(dev, n, d, force_break, cap):
         assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("n,d,cap,p", [(0, 5, 16, 0.5), (4097, 5, 4096, 0.3),
-                                       (50000, 1, 100, 0.5),
-                                       (10000, 8, 20000, 1.0),
-                                       (10000, 3, 512, 0.0)])
+@pytest.mark.parametrize("n,d,cap,p", [
+    (0, 5, 16, 0.5), (4097, 5, 4096, 0.3), (50000, 1, 100, 0.5),
+    (10000, 8, 20000, 1.0), (10000, 3, 512, 0.0),
+    # the single-pass design's edges: 1,024-flag tiles, overflow inside a
+    # tile, many tiles, the main path's shape
+    (1024, 5, 4096, 1.0), (1023, 4, 512, 1.0), (1025, 1, 4096, 0.5),
+    (26250, 5, 4096, 0.117), (26250, 5, 1000, 0.5),
+    (1_000_003, 3, 1 << 20, 0.1), (5000, 8, 16, 0.0), (7, 2, 3, 1.0)])
 def test_compact_kernel_equals_twin(dev, n, d, cap, p):
+    """Equal to the twin, and the same bits on a second launch."""
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import compact as m
     rng = np.random.default_rng(n + d)
     words = torch.from_numpy(
         rng.integers(-2 ** 31, 2 ** 31 - 1, (n, d)).astype(np.int32)).to(dev)
     mask = torch.from_numpy(rng.random(n) < p).to(dev)
     got = m.compact_rows(words, mask, cap)
+    again = m.compact_rows(words, mask, cap)
     ref = m.compact_plain(words, mask, cap)
     torch.cuda.synchronize()
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, r) and torch.equal(a, r)
 
 
 @pytest.mark.parametrize("size,rot45", [(1, False), (1, True), (2, True),
@@ -175,6 +182,87 @@ def test_engine_on_card_equals_cpu(dev):
         for k in outs[1]._fields:
             assert torch.equal(getattr(outs[0], k).cpu(),
                                getattr(outs[1], k)), k
+
+
+def _runs_of(rng, lengths, sentinel, sentinel_every=0):
+    """Keys in runs of the given lengths, neighbouring runs distinct; every
+    ``sentinel_every``-th run is sentinel."""
+    ks = rng.integers(0, 1000, len(lengths))
+    ks[1:] += (ks[1:] == ks[:-1])          # neighbours differ
+    if sentinel_every:
+        ks[sentinel_every - 1::sentinel_every] = sentinel
+    return np.repeat(ks, lengths).astype(np.int32)
+
+
+def _seg_edge_case(name, rng, sent):
+    """(keys, capacity, force_break) of an edge case of the single-pass
+    design (reduce_by_key.cuh: 2,048-position tiles, 8 consecutive
+    positions per thread; the runs below also cover twice that tile)."""
+    tile = 4096
+    if name == "run_over_two_tiles":
+        return _runs_of(rng, [300, 2 * tile + 700, 50, 40], sent), 64, 0
+    if name == "runs_end_on_tile_and_warp_edges":
+        lengths = [512] * 8 + [tile, 100, tile - 100, 32, 480, 7]
+        return _runs_of(rng, lengths, sent), 64, 0
+    if name == "all_sentinel":
+        return np.full(3 * tile + 321, sent, np.int32), 16, 0
+    if name == "overflow_mid_tile":
+        keys = _runs_of(rng, rng.integers(1, 9, 20000), sent, 7)
+        return keys, 5000, 0          # the cut falls inside a tile
+    if name == "long_runs_many_tiles":   # look-back past 32 head-less tiles
+        keys = _runs_of(rng, rng.integers(1, 200000, 40), sent, 9)
+        return keys, 1 << 20, 0
+    if name == "level2_like":         # sorted partials: ~34 rows a cell
+        keys = _runs_of(rng, rng.geometric(1 / 34, 60000), sent)
+        return keys, 16384, 0
+    if name.startswith("force_break_"):
+        fb = int(name.rsplit("_", 1)[1])
+        keys = _runs_of(rng, rng.integers(1, 400, 2000), sent, 11)
+        return keys, 1 << 20, fb
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("d", [1, 4, 7])
+@pytest.mark.parametrize("name", [
+    "run_over_two_tiles", "runs_end_on_tile_and_warp_edges", "all_sentinel",
+    "overflow_mid_tile", "long_runs_many_tiles", "level2_like",
+    "force_break_100", "force_break_3000", "force_break_5000",
+    "force_break_128", "force_break_2048"])
+def test_segreduce_kernel_edges_equal_twin(dev, name, d):
+    """The single-pass kernel equals its twin bit for bit on the edges of
+    its tiles, warps and look-back, and gives the same bits twice."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import segreduce as m
+    rng = np.random.default_rng(zlib.crc32(f"{name}/{d}".encode()))
+    sent = 1 << 22
+    keys, cap, fb = _seg_edge_case(name, rng, sent)
+    n = keys.shape[0]
+    vals = rng.integers(0, 64, (n, d)).astype(np.float32)
+    k_t, v_t = torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev)
+    got = m.segreduce(k_t, v_t, cap, sent, fb)
+    again = m.segreduce(k_t, v_t, cap, sent, fb)
+    ref = m.segreduce_plain(k_t, v_t, cap, sent, fb)
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, r) and torch.equal(a, r)
+
+
+def test_segreduce_kernel_unaligned_rows_equal_twin(dev):
+    """D = 4 rows that are not 16-byte aligned take the scalar loads."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import segreduce as m
+    rng = np.random.default_rng(3)
+    sent = 1 << 20
+    keys = torch.from_numpy(_runs_of(rng, rng.integers(1, 50, 3000), sent,
+                                     5)).to(dev)
+    n = keys.shape[0]
+    flat = torch.from_numpy(rng.integers(0, 64, 4 * n + 1).astype(
+        np.float32)).to(dev)
+    vals = flat[1:].view(n, 4)
+    assert vals.data_ptr() % 16 != 0
+    got = m.segreduce(keys, vals, 1 << 16, sent, 0)
+    ref = m.segreduce_plain(keys, vals, 1 << 16, sent, 0)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 def _front_inputs(rng, c, h, w, dev):
