@@ -42,9 +42,11 @@ each:
    frame rate without the worker.
 6. kernels (after the loops, so that ``torch.profiler``, which times
    them, cannot touch the host-bound loops): each kernel's inputs are
-   recorded from one frame of the link phase; the kernel is checked against its plain PyTorch twin on them
-   (exact). Per frame (segreduce: both levels) it prints the kernel's
-   device ms (the summed device activity of a call, kernels and fills,
+   recorded from one frame of the link phase; the kernel is checked
+   against its plain PyTorch twin on them (exact), flying_pixels also
+   with 2 and 3 rings on two of that frame's cameras. Per frame
+   (segreduce: both levels) it prints the kernel's device ms (the
+   summed device activity of a call, kernels and fills,
    from ``torch.profiler`` over 20 calls after 3 warm-ups: no host gaps),
    its ``call_ms`` (CUDA events around one call, host work before the
    launches included, median of 20), its ``bound_ms`` (the bytes the
@@ -54,7 +56,8 @@ each:
    ``rows[flags]``, the one PyTorch call that computes the same rows;
 7. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
    path) on the recorded frame's masked metric depth, against its twin
-   (exact in all five outputs), timed as in phase 6 beside its twin and
+   (exact in all five outputs, with ``force_break`` 128 and, runs
+   crossing its tiles, 0), timed as in phase 6 beside its twin and
    the engine's chain (unproject, crop, cell index, quantize, level-1
    segreduce), and the level-2 closure against that chain.
 
@@ -254,22 +257,31 @@ def device_ms(torch, fn, reps=20, warm=3):
     """Device time of one call of ``fn`` in ms: the summed durations of
     the device activities (kernels, fills, copies) that ``reps`` calls
     launch, from ``torch.profiler``, over ``reps``, after ``warm``
-    warm-up calls. Host gaps between launches are not counted."""
+    warm-up calls. Host gaps between launches are not counted. The
+    profiler now and then hands back a trace that lacks some or all of
+    its device activities (seen about once in a hundred traces on the
+    H100), so the measurement is taken twice, a third time if the two
+    disagree on the number of activities, and the fullest trace counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA)
-    if us <= 0:
+    traces = []
+    while len(traces) < 2 or (len(traces) == 2
+                              and traces[0][0] != traces[1][0]):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA]
+        traces.append((len(us), sum(us)))
+    count, total = max(traces, key=lambda t: t[0])   # the first fullest
+    if count < reps or total <= 0:
         raise RuntimeError("torch.profiler recorded no device activity")
-    return us / 1e3 / reps
+    return total / 1e3 / reps
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
@@ -303,17 +315,48 @@ def work_of(name, args, out):
     if name == "flying_pixels":
         pts, mask, fs, rot45 = args[0], args[1], args[4], args[6]
         pix = mask.numel()
-        # points and mask in, mask out; per pixel ~19 operations for the
-        # range gate and the view ray and ~30 per ring test, counted at
-        # their most (every ring tested): still far below the bytes
+        # points and mask in, mask out. Operations at their most (every
+        # ring tested on every pixel), an IEEE division counted as the 11
+        # its instruction sequence does (a reciprocal and 5 fused
+        # multiply-adds), a square root as 6: 46 for the range gate and
+        # the view ray, 66 a ring test (12 of them loads' differences and
+        # the cross product). Below the bytes; what holds the kernel is
+        # the instruction rate of those sequences, not their operation count
         rings = fs * (2 if rot45 else 1)
-        return pts.nbytes + 2 * pix + 8, pix * (19 + 30 * rings)
+        return pts.nbytes + 2 * pix + 8, pix * (46 + 66 * rings)
     if name == "compact":
         words, mask, cap = args[0], args[1], args[2]
         d = words.shape[1]
         moved = min(int(out[2]), cap)     # rows the output takes
         return mask.nbytes + moved * 4 * d + cap * 4 * d + 8, mask.numel()
     raise KeyError(name)
+
+
+def fused_inputs(torch, calls, cfg, grid):
+    """Kernel 4's arguments on a recorded frame: its depth, masked by the
+    flying-pixel filter's output, in metres. Returns (the masked integer
+    depth, the unprojection's other arguments, the wrapper's arguments)."""
+    (depth_u16, intr, tfw, tfc, scale), _, _ = calls["unproject"][0]
+    fp_mask = calls["flying_pixels"][0][2].reshape(depth_u16.shape)
+    depth_m = (depth_u16.to(torch.float32) * float(scale)
+               * fp_mask.to(torch.float32)).contiguous()
+    return (depth_u16 * fp_mask, (intr, tfw, tfc, scale),
+            (depth_m, intr, tfw, tfc, grid, cfg.crop_min, cfg.crop_max,
+             cfg.voxelize_partials_capacity))
+
+
+def fused_work(fargs, valid):
+    """(bytes, float32 operations) of one call of kernel 4 with ``valid``
+    valid points: depth and the camera tables in; the static-capacity key
+    and sum rows and three counts out. Per pixel with a depth ~50
+    operations (unprojection with its two IEEE divisions at 11 each, crop
+    transform and test), per valid point ~110 more (world transform, cell
+    and quantization with six divisions, sums), counted from
+    ``csrc/fused_unproject_rle.cu``; a pixel without depth costs none."""
+    depth_m, intr, tfw, tfc, cap = *fargs[:4], fargs[7]
+    return (depth_m.nbytes + intr.nbytes + tfw.nbytes + tfc.nbytes
+            + cap * 4 * 5 + 12,
+            int((depth_m > 0).sum()) * 50 + valid * 110)
 
 
 def record_calls(mods, run):
@@ -841,6 +884,14 @@ def main():
                 tot[key] += one[key]
             per_call.append(f"{one['ms']:.4f}/{bound:.4f}")
             shapes.append("x".join(map(str, a[0].shape)))
+        if name == "flying_pixels":
+            # the halo wider than one pixel, at the full image size
+            pts, mask, fh, fw, _, thr, _, maxd = calls[name][0][0]
+            for rings in (2, 3):
+                wide = (pts[:2], mask[:2], fh, fw, rings, thr, True, maxd)
+                if not torch.equal(kern(*wide), twin(*wide)):
+                    raise AssertionError(f"{name}: kernel != twin with "
+                                         f"{rings} rings")
         library = None
         if name == "compact":
             # one PyTorch call computes the same rows: boolean indexing
@@ -862,14 +913,9 @@ def main():
               flush=True)
 
     # -- 7. kernel 4, the fused front, on the recorded frame --
-    (depth_u16, k_intr, k_tfw, k_tfc, scale), _, _ = calls["unproject"][0]
-    fp_mask = calls["flying_pixels"][0][2].reshape(depth_u16.shape)
-    depth_masked = depth_u16 * fp_mask
-    depth_m = (depth_u16.to(torch.float32) * float(scale)
-               * fp_mask.to(torch.float32)).contiguous()
-    cap = cfg.voxelize_partials_capacity
-    fargs = (depth_m, k_intr, k_tfw, k_tfc, grid, cfg.crop_min,
-             cfg.crop_max, cap)
+    depth_masked, (k_intr, k_tfw, k_tfc, scale), fargs = fused_inputs(
+        torch, calls, cfg, grid)
+    depth_m, cap = fargs[0], fargs[7]
     # kernel 4's own path: this call, counted from 0
     fused_unproject_rle.launches = 0
     got = fused_unproject_rle.unproject_voxelize_l1(*fargs)
@@ -880,6 +926,13 @@ def main():
     if err != 0.0:
         raise AssertionError(f"fused_unproject_rle: kernel != twin, max abs "
                              f"err {err} (exact required)")
+    # without forced breaks runs cross the kernel's tiles and rows
+    free = max_abs_err(
+        torch, fused_unproject_rle.unproject_voxelize_l1(*fargs, 0),
+        fused_unproject_rle.unproject_voxelize_l1_plain(*fargs, 0))
+    if free != 0.0:
+        raise AssertionError(f"fused_unproject_rle: kernel != twin at "
+                             f"force_break=0, max abs err {free}")
 
     def chain():
         _, pw, pc, m = unproject.unproject_depthmaps(
@@ -917,21 +970,15 @@ def main():
     f_ms, f_call_ms = device_ms(torch, fused), cuda_ms(torch, fused)
     f_plain_ms = device_ms(torch, fused_plain)
     chain_ms, chain_call_ms = device_ms(torch, chain), cuda_ms(torch, chain)
-    # depth and the camera tables in; the static-capacity key and sum rows
-    # and three counts out. Per pixel ~30 operations (unprojection, crop
-    # transform and test), per valid point ~65 more (world transform, cell,
-    # quantization, sums), counted from csrc/fused_unproject_rle.cu
-    f_bytes = (depth_m.nbytes + k_intr.nbytes + k_tfw.nbytes + k_tfc.nbytes
-               + cap * 4 * 5 + 12)
-    f_bound, f_bound_by = roofline(
-        f_bytes, depth_m.numel() * 30 + int(got[4]) * 65)
+    f_bound, f_bound_by = roofline(*fused_work(fargs, int(got[4])))
     results["fused_unproject_rle"] = dict(
         max_abs_err=err, ms=f_ms, call_ms=f_call_ms, plain_ms=f_plain_ms,
         bound_ms=f_bound, bound_by=f_bound_by, library_ms=None)
     shape = "x".join(map(str, depth_m.shape))
     print(f"[fused] unproject_voxelize_l1 on {shape} (link frame "
           f"{RECORD_FRAME}, masked metric "
-          f"depth), capacity {cap}: max_abs_err {err} in all five outputs | "
+          f"depth), capacity {cap}: max_abs_err {err} in all five outputs "
+          f"(force_break=0: {free}) | "
           f"runs {int(got[3])} (chain's level 1: {int(ct)}), valid points "
           f"{int(got[4])} | launches_per_frame "
           f"{per_frame['fused_unproject_rle']:g} on the link | device ms "

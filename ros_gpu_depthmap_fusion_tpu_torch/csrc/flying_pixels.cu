@@ -15,112 +15,184 @@
 // It is built with --fmad=false and IEEE division and square root, so each
 // operation rounds as it does in the plain twin; the masks are equal.
 //
-// Design: one thread per pixel, neighbours read straight from global
-// memory (a neighbour row is shared by the threads of the rows around it
-// and hits L1/L2). threshold and max_distance are read from a device array
-// so a live reconfiguration costs no host sync.
+// Design: a 2-D grid of kFpTileX x kFpTileY pixel tiles, the camera in
+// blockIdx.z (no integer division anywhere). A block first stages its tile
+// plus a halo of filter_size pixels on all four sides in shared memory,
+// one coalesced 16-byte load and one 16-byte shared store a point, with the
+// mask folded into the point's unused w lane (all ones = valid). A halo
+// position outside the image is staged invalid, which is the border rule:
+// a pixel within d of any border has a ring-d neighbour (plain and rot45
+// rings both touch all four sides) that is out of bounds, and fails. Every
+// neighbour then comes from shared memory as one 16-byte load: a quarter
+// warp's 8 consecutive pixels read 128 consecutive bytes, so the loads are
+// free of bank conflicts, and a ring costs 4 shared loads (as three
+// coordinate planes and a flag plane it cost 16, each with its own address;
+// measured slower). A thread takes kFpPix pixels of one column,
+// kFpThreadsY rows apart, so that the staging and the set-up are paid once
+// for them; the kernel is compiled with and without the rot45 ring, so
+// that the ring's offsets are not chosen at run time. A warp packs its 32
+// results with one ballot and every fourth lane stores four of them as one
+// 32-bit word; only where a row of the output is not 4-byte aligned
+// (w % 4 != 0) or the image ends inside the four, each lane stores its own
+// byte. threshold and max_distance are read from a device array so a live
+// reconfiguration costs no host sync.
 //
-// Bound on the card: memory. Per pixel it reads 16 bytes of point and 1
-// byte of mask and writes 1 byte; the 4 * (1 + rot45) * filter_size
-// neighbour reads come from cache. At 8 x 480 x 848 that is ~55 MB of
-// compulsory traffic. Left for later: a shared-memory tile with a
-// filter_size halo, and reading the three coordinates as planes.
+// Bound on the card: per pixel it must read 16 bytes of point and 1 byte of
+// mask and write 1 byte, ~59 MB at 8 x 480 x 848; a tile also reads its
+// halo, (34 x 10) / (32 x 8) = 1.33 times the points at filter_size 1,
+// mostly from L2. What holds it above that is instruction rate: the IEEE
+// divisions and square roots (3 + 1 for the view ray, 3 + 1 a ring) expand
+// to ~10 instructions each, 120 of a pixel's ~300 at one ring pair
+// (PERF.md has the measured times).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace fusion {
 
-constexpr int kFpThreads = 256;
+constexpr int kFpTileX = 32;     // a multiple of 32: a warp is one row piece
+constexpr int kFpThreadsY = 4;
+constexpr int kFpPix = 2;        // pixels a thread, kFpThreadsY rows apart
+constexpr int kFpTileY = kFpThreadsY * kFpPix;
+// rings a launch takes: the halo columns are staged by the first 2 *
+// filter_size threads of a row, and the tile with its halo must fit the 48
+// KB of shared memory a kernel gets without opting in
+// ((32 + 16) x (8 + 16) x 16 bytes = 18 KB)
+constexpr int kFpMaxFilter = 8;
+static_assert(2 * kFpMaxFilter <= kFpTileX && kFpTileX % 32 == 0, "");
+constexpr unsigned kFpFull = 0xffffffffu;
 
-__device__ __forceinline__ float3 load_xyz(const float4* __restrict__ p,
-                                           int idx) {
-  const float4 v = p[idx];
-  return make_float3(v.x, v.y, v.z);
+static inline size_t fp_smem_bytes(int filter_size) {
+  return (size_t)(kFpTileX + 2 * filter_size)
+         * (kFpTileY + 2 * filter_size) * sizeof(float4);
 }
 
-static __global__ void __launch_bounds__(kFpThreads)
+// Ring test of a pixel whose neighbours are staged at up, down, left and
+// right: all four valid (w lanes all ones), then cos(normal, view) >=
+// threshold, op for op as stencil.py:92-115.
+__device__ __forceinline__ bool fp_ring(const float4* up_p,
+                                        const float4* down_p,
+                                        const float4* left_p,
+                                        const float4* right_p, float vx,
+                                        float vy, float vz, float threshold) {
+  const float4 up = *up_p, down = *down_p, left = *left_p, right = *right_p;
+  if (!(__float_as_uint(up.w) & __float_as_uint(down.w)
+        & __float_as_uint(left.w) & __float_as_uint(right.w)))
+    return false;
+  // a = down - up, b = right - left, normal = cross(a, b)
+  const float a0 = down.x - up.x, a1 = down.y - up.y, a2 = down.z - up.z;
+  const float b0 = right.x - left.x, b1 = right.y - left.y,
+              b2 = right.z - left.z;
+  float n0 = a1 * b2 - a2 * b1;
+  float n1 = a2 * b0 - a0 * b2;
+  float n2 = a0 * b1 - a1 * b0;
+  const float nlen = fmaxf(sqrtf((n0 * n0 + n1 * n1) + n2 * n2), 1e-30f);
+  n0 = n0 / nlen;
+  n1 = n1 / nlen;
+  n2 = n2 / nlen;
+  const float cos_view = (n0 * vx + n1 * vy) + n2 * vz;
+  return cos_view >= threshold;
+}
+
+template <bool kRot45>
+static __global__ void __launch_bounds__(kFpTileX * kFpThreadsY)
 flying_pixels_kernel(const float4* __restrict__ pts,
                      const uint8_t* __restrict__ mask,
-                     uint8_t* __restrict__ out, int cams, int h, int w,
-                     int filter_size, int rot45,
-                     const float* __restrict__ params) {
-  const long long hw = (long long)h * w;
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)cams * hw) return;
-  const int cam = (int)(gid / hw);
-  const int pix = (int)(gid - (long long)cam * hw);
-  const int y = pix / w;
-  const int x = pix - y * w;
-  const float4* img = pts + (long long)cam * hw;
-  const uint8_t* msk = mask + (long long)cam * hw;
+                     uint8_t* __restrict__ out, int h, int w,
+                     int filter_size, const float* __restrict__ params) {
+  extern __shared__ float4 tile[];             // [sh][sw]: x, y, z, valid
+  const int sw = kFpTileX + 2 * filter_size;   // staged row pitch
+  const int sh = kFpTileY + 2 * filter_size;
 
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.x * kFpTileX, y0 = blockIdx.y * kFpTileY;
+  const int cam_base = blockIdx.z * h * w;
+  const float4* img = pts + cam_base;
+  const uint8_t* msk = mask + cam_base;
   const float threshold = params[0];
   const float max_distance = params[1];
 
-  const bool m = msk[pix] != 0;
-  const float3 p = load_xyz(img, pix);
-  const float dist2 = (p.x * p.x + p.y * p.y) + p.z * p.z;
-  bool keep = m && dist2 <= max_distance * max_distance;
-
-  const float3 v = make_float3(-p.x, -p.y, -p.z);
-  const float vlen = fmaxf(sqrtf((v.x * v.x + v.y * v.y) + v.z * v.z),
-                           1e-30f);
-  const float vx = v.x / vlen, vy = v.y / vlen, vz = v.z / vlen;
-
-  for (int d = 1; d <= filter_size && keep; ++d) {
-    // in-bounds test shared by both neighbourhoods of ring d
-    if (x - d < 0 || x + d > w - 1 || y - d < 0 || y + d > h - 1) {
-      keep = false;
-      break;
-    }
-    for (int r = 0; r <= rot45 && keep; ++r) {
-      // (dy, dx) of up, down, left, right (stencil.py:77-90)
-      int o[4][2];
-      if (r == 0) {
-        o[0][0] = -d; o[0][1] = 0;  o[1][0] = d;  o[1][1] = 0;
-        o[2][0] = 0;  o[2][1] = -d; o[3][0] = 0;  o[3][1] = d;
-      } else {
-        o[0][0] = -d; o[0][1] = -d; o[1][0] = d;  o[1][1] = d;
-        o[2][0] = d;  o[2][1] = -d; o[3][0] = -d; o[3][1] = d;
+  // ---- stage the tile and its halo: a thread takes column tx of every
+  // kFpThreadsY-th staged row, the first 2 * filter_size threads also the
+  // column past the tile's width
+  for (int r = ty; r < sh; r += kFpThreadsY) {
+    const int gy = y0 - filter_size + r;
+    const bool row_in = gy >= 0 && gy < h;
+    const int g_row = gy * w + x0 - filter_size;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = tx + q * kFpTileX;
+      if (c >= sw) break;
+      const int gx = x0 - filter_size + c;
+      float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row_in && gx >= 0 && gx < w) {
+        const bool m = msk[g_row + c] != 0;
+        p = img[g_row + c];
+        p.w = __uint_as_float(m ? 0xffffffffu : 0u);
       }
-      int nb[4];
-      bool ok = true;
-      for (int k = 0; k < 4; ++k) {
-        nb[k] = (y + o[k][0]) * w + (x + o[k][1]);
-        ok = ok && msk[nb[k]] != 0;
-      }
-      if (!ok) {
-        keep = false;
-        break;
-      }
-      const float3 up = load_xyz(img, nb[0]);
-      const float3 down = load_xyz(img, nb[1]);
-      const float3 left = load_xyz(img, nb[2]);
-      const float3 right = load_xyz(img, nb[3]);
-      // a = down - up, b = right - left, normal = cross(a, b)
-      const float a0 = down.x - up.x, a1 = down.y - up.y, a2 = down.z - up.z;
-      const float b0 = right.x - left.x, b1 = right.y - left.y,
-                  b2 = right.z - left.z;
-      float n0 = a1 * b2 - a2 * b1;
-      float n1 = a2 * b0 - a0 * b2;
-      float n2 = a0 * b1 - a1 * b0;
-      const float nlen =
-          fmaxf(sqrtf((n0 * n0 + n1 * n1) + n2 * n2), 1e-30f);
-      n0 = n0 / nlen;
-      n1 = n1 / nlen;
-      n2 = n2 / nlen;
-      const float cos_view = (n0 * vx + n1 * vy) + n2 * vz;
-      keep = cos_view >= threshold;
+      tile[r * sw + c] = p;
     }
   }
-  out[gid] = keep ? 1 : 0;
+  __syncthreads();
+
+  const int lane = tx & 31;
+  const int quad = lane & 3;
+  const int x = x0 + tx;
+#pragma unroll
+  for (int j = 0; j < kFpPix; ++j) {
+    // ---- one pixel, all reads from the staged tile
+    const int yt = ty + j * kFpThreadsY;
+    const int y = y0 + yt;
+    const float4* centre = tile + (yt + filter_size) * sw + tx + filter_size;
+    const float4 p = *centre;
+    bool keep = __float_as_uint(p.w) != 0;   // false outside the image
+    if (keep) {
+      const float px = p.x, py = p.y, pz = p.z;
+      const float dist2 = (px * px + py * py) + pz * pz;
+      keep = dist2 <= max_distance * max_distance;
+      if (keep && filter_size > 0) {
+        const float v0 = -px, v1 = -py, v2 = -pz;
+        const float vlen =
+            fmaxf(sqrtf((v0 * v0 + v1 * v1) + v2 * v2), 1e-30f);
+        const float vx = v0 / vlen, vy = v1 / vlen, vz = v2 / vlen;
+        // up, down, left, right of ring d (stencil.py:77-90), as (dy, dx):
+        // (-d, 0) (d, 0) (0, -d) (0, d), then rotated by 45 degrees
+        // (-d, -d) (d, d) (d, -d) (-d, d)
+        for (int d = 1; d <= filter_size && keep; ++d) {
+          const int dr = d * sw;
+          keep = fp_ring(centre - dr, centre + dr, centre - d, centre + d,
+                         vx, vy, vz, threshold);
+          if (kRot45 && keep)
+            keep = fp_ring(centre - dr - d, centre + dr + d, centre + dr - d,
+                           centre - dr + d, vx, vy, vz, threshold);
+        }
+      }
+    }
+
+    // ---- a warp is 32 consecutive pixels of one row: four results a word
+    const unsigned kept = __ballot_sync(kFpFull, keep);
+    // dereferenced only inside the image
+    uint8_t* dst = out + ((size_t)cam_base + (size_t)y * w + x);
+    const bool whole = y < h && x - quad + 3 < w
+                       && (reinterpret_cast<uintptr_t>(dst - quad) & 3) == 0;
+    if (whole) {
+      if (quad == 0) {
+        const unsigned b = kept >> lane;
+        *reinterpret_cast<uint32_t*>(dst) =
+            (b & 1u) | (b & 2u) << 7 | (b & 4u) << 14 | (b & 8u) << 21;
+      }
+    } else if (y < h && x < w) {
+      *dst = keep ? 1 : 0;
+    }
+  }
 }
 
 }  // namespace fusion
 
 // points [cams, h*w, 4] float32 (16-byte aligned); mask, out [cams, h*w]
-// uint8 (0/1); params [2] float32 = {threshold, max_distance}. Returns
-// cudaGetLastError().
+// uint8 (0/1); params [2] float32 = {threshold, max_distance}; 0 <=
+// filter_size <= 8 (kFpMaxFilter), cams * h * w < 2^31,
+// cams and the rows' tiles at most 65,535 (a grid's y and z extents).
+// Returns cudaGetLastError().
 extern "C" int fusion_flying_pixels(const float* points, const uint8_t* mask,
                                     uint8_t* out, int cams, int h, int w,
                                     int filter_size, int rot45,
@@ -128,11 +200,22 @@ extern "C" int fusion_flying_pixels(const float* points, const uint8_t* mask,
                                     cudaStream_t stream) {
   using namespace fusion;
   const long long total = (long long)cams * h * w;
+  const int tiles_y = (h + kFpTileY - 1) / kFpTileY;
+  if (cams < 0 || h < 0 || w < 0 || filter_size < 0
+      || filter_size > kFpMaxFilter || total >= (1LL << 31) || cams > 65535
+      || tiles_y > 65535)
+    return (int)cudaErrorInvalidValue;
   if (total > 0) {
-    const long long blocks = (total + kFpThreads - 1) / kFpThreads;
-    flying_pixels_kernel<<<(unsigned)blocks, kFpThreads, 0, stream>>>(
-        reinterpret_cast<const float4*>(points), mask, out, cams, h, w,
-        filter_size, rot45 ? 1 : 0, params);
+    const dim3 grid((w + kFpTileX - 1) / kFpTileX, tiles_y, cams);
+    const dim3 block(kFpTileX, kFpThreadsY);
+    const size_t smem = fp_smem_bytes(filter_size);
+    const float4* pts = reinterpret_cast<const float4*>(points);
+    if (rot45)
+      flying_pixels_kernel<true><<<grid, block, smem, stream>>>(
+          pts, mask, out, h, w, filter_size, params);
+    else
+      flying_pixels_kernel<false><<<grid, block, smem, stream>>>(
+          pts, mask, out, h, w, filter_size, params);
   }
   return (int)cudaGetLastError();
 }

@@ -3,12 +3,14 @@
 // runs in stream order, in one kernel launch (after one small memset of the
 // look-back descriptors).
 //
-// A kernel supplies the stream as a SOURCE with the two device methods of
-// runs.cuh:
+// A kernel supplies the stream as a SOURCE with two device methods:
 //   int key(int i)               the key at stream position i;
-//   int elem(int i, float* v)    the key, and its D values written to v.
-// Stage 2 below uses only elem's values; for an array source the compiler
-// drops elem's unused key load, so each key is read once.
+//   void elem(int i, float* v)   position i's D values, written to v.
+// A block asks for the key of every position of its tile and of the two
+// positions around it, then (after a block barrier) for the values of the
+// tile's valid positions: segreduce.cu reads both from arrays,
+// fused_unproject_rle.cu computes them from a depth image and keeps a
+// tile's values in shared memory between the two calls.
 //
 // Run rule (the contract of the JAX package's rle_body,
 // ops/pallas/segreduce.py:63): the sentinel key is ignored and ends runs;
@@ -43,8 +45,9 @@
 //            [count, capacity) only; the last tile writes counts =
 //            {min(runs, capacity), runs}.
 //
-// Tile ids come from an atomic counter in the scratch, so a tile's
-// predecessors have all started and the look-back always makes progress.
+// Tile ids come from an atomic counter in the scratch (claim_tile), so a
+// tile's predecessors have all started and the look-back always makes
+// progress.
 // When force_break divides kTile every tile starts a run (or holds a
 // sentinel there), no run crosses a tile, and the carry look-back is
 // skipped. Every value must be a non-negative integer-valued float with
@@ -168,7 +171,6 @@ __device__ __forceinline__ void store_row(int* out_keys, float* out_sums,
 
 struct Smem {
   alignas(16) int keys[kTile];  // the tile's keys, striped in, blocked out
-  int tile;
   int run_base;
   int edge_key[2];              // the keys just before and after the tile
   int lead;                     // the tile begins inside a run
@@ -177,24 +179,34 @@ struct Smem {
   int warp_seg[kWarps];         // a segment head in the warp's positions
   float warp_sum[kWarps][kMaxD];  // the warp's trailing partial
   float warp_cin[kWarps][kMaxD];  // the carry into the warp
+  int warp_valid[kWarps];         // valid positions (kCountValid only)
 };
 
-// One block: a tile of the stream, or, past the last tile, a fill block.
-// out_sums must be 16-byte aligned when D == 4.
-template <int D, class Source>
-__device__ void reduce_by_key_block(const Source& src, int n, int sentinel,
-                                    int fb, int capacity, bool carry_mode,
-                                    int tiles, Scratch s,
+// The block's tile id (all threads): tiles first, fill blocks after.
+__device__ __forceinline__ int claim_tile(const Scratch& s) {
+  __shared__ int tile;
+  if (threadIdx.x == 0) tile = atomicAdd(s.counter, 1);
+  __syncthreads();
+  return tile;
+}
+
+// One block, which claimed id t: tile t of the stream, or, past the last
+// tile, a fill block. out_sums must be 16-byte aligned when D == 4. With
+// kCountValid each tile also adds its number of valid (non-sentinel)
+// positions to *valid_out, which must be zero before the launch: one
+// integer atomic a tile, exact in any order.
+template <int D, bool kCountValid = false, class Source>
+__device__ void reduce_by_key_block(const Source& src, int t, int n,
+                                    int sentinel, int fb, int capacity,
+                                    bool carry_mode, int tiles, Scratch s,
                                     int* __restrict__ out_keys,
                                     float* __restrict__ out_sums,
-                                    int* __restrict__ counts) {
+                                    int* __restrict__ counts,
+                                    int* __restrict__ valid_out = nullptr) {
   __shared__ Smem sm;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int w = tid >> 5;
-  if (tid == 0) sm.tile = atomicAdd(s.counter, 1);
-  __syncthreads();
-  const int t = sm.tile;
 
   if (t >= tiles) {  // ---- fill the rows past the count
     if (tid == 0) {
@@ -264,8 +276,16 @@ __device__ void reduce_by_key_block(const Source& src, int n, int sentinel,
   const int incl = lb::warp_incl_scan(count);
   if (lane == 31) sm.warp_count[w] = incl;
   if (tid == 0) sm.lead = !(seg & 1u);
+  if constexpr (kCountValid) {
+    const int nv = lb::warp_sum(__popc(valid));
+    if (lane == 0) sm.warp_valid[w] = nv;
+  }
   __syncthreads();
   if (w == 0) {
+    if constexpr (kCountValid) {
+      const int nv = lb::warp_sum(lane < kWarps ? sm.warp_valid[lane] : 0);
+      if (lane == 0 && nv) atomicAdd(valid_out, nv);
+    }
     const int c = lane < kWarps ? sm.warp_count[lane] : 0;
     const int wincl = lb::warp_incl_scan(c);
     if (lane < kWarps) sm.warp_excl[lane] = wincl - c;

@@ -44,7 +44,7 @@ struct ArraySource {
   const int* keys;
   const float* vals;
   __device__ __forceinline__ int key(int i) const { return keys[i]; }
-  __device__ __forceinline__ int elem(int i, float* v) const {
+  __device__ __forceinline__ void elem(int i, float* v) const {
     if constexpr (kVec4) {
       const float4 q = reinterpret_cast<const float4*>(vals)[i];
       v[0] = q.x;
@@ -55,7 +55,6 @@ struct ArraySource {
 #pragma unroll
       for (int c = 0; c < D; ++c) v[c] = vals[(size_t)i * D + c];
     }
-    return keys[i];
   }
 };
 
@@ -69,9 +68,9 @@ segreduce_kernel(const int* __restrict__ keys, const float* __restrict__ vals,
                  int* __restrict__ out_keys, float* __restrict__ out_sums,
                  int* __restrict__ counts) {
   const ArraySource<D, kVec4> src{keys, vals};
-  rbk::reduce_by_key_block<D>(src, n, sentinel, force_break, capacity,
-                              carry_mode, tiles, s, out_keys, out_sums,
-                              counts);
+  rbk::reduce_by_key_block<D>(src, rbk::claim_tile(s), n, sentinel,
+                              force_break, capacity, carry_mode, tiles, s,
+                              out_keys, out_sums, counts);
 }
 
 template <int D, bool kVec4>

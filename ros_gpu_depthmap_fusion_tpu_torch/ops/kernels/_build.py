@@ -106,8 +106,6 @@ def _build() -> ctypes.CDLL:
         os.replace(f"{tmp}.so", lib_path)
         built = True
     lib = ctypes.CDLL(str(lib_path))
-    lib.fusion_scan_tiles.argtypes = [ctypes.c_int]
-    lib.fusion_scan_tiles.restype = ctypes.c_int
     lib.fusion_error_string.argtypes = [ctypes.c_int]
     lib.fusion_error_string.restype = ctypes.c_char_p
     _info.update(path=str(lib_path), log=str(log_path), built=built,
@@ -156,11 +154,6 @@ def stream_ptr(t) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
-
-
-def scan_tiles(n: int) -> int:
-    """Scratch entries per tile-count array for an ``n``-element scan."""
-    return library().fusion_scan_tiles(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,6 +29,9 @@ launches = 0
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+#: rings the CUDA kernel takes (``kFpMaxFilter`` in the source: its
+#: shared-memory tile carries a halo of this many pixels at most)
+MAX_FILTER_SIZE = 8
 
 
 def filter_flying_pixels_plain(points_cam: torch.Tensor,
@@ -118,7 +121,9 @@ def filter_flying_pixels(points_cam: torch.Tensor,
         ``[C, H*W]`` bool output mask.
 
     A CPU tensor runs :func:`filter_flying_pixels_plain`; a CUDA tensor
-    launches the kernel (built on first use) or raises.
+    launches the kernel (built on first use) or raises: the kernel takes
+    ``filter_size`` up to :data:`MAX_FILTER_SIZE`, at most 65,535 cameras
+    and 8 * 65,535 rows, and fewer than 2^31 pixels in all.
     """
     if points_cam.device.type == "cpu":
         return filter_flying_pixels_plain(
@@ -138,9 +143,13 @@ def filter_flying_pixels(points_cam: torch.Tensor,
             or not mask.is_contiguous() or mask.device != points_cam.device:
         raise ValueError("filter_flying_pixels: mask must be a contiguous "
                          "[C, H*W] bool tensor on the points' device")
-    if filter_size < 0 or c * height * width >= 2 ** 31:
-        raise ValueError("filter_flying_pixels: unsupported "
-                         f"filter_size={filter_size} or size")
+    if not 0 <= filter_size <= MAX_FILTER_SIZE:
+        raise ValueError("filter_flying_pixels: the kernel takes "
+                         f"filter_size 0..{MAX_FILTER_SIZE}, got "
+                         f"{filter_size}")
+    if c * height * width >= 2 ** 31 or c > 65535 or height > 8 * 65535:
+        raise ValueError("filter_flying_pixels: unsupported size "
+                         f"{c} x {height} x {width}")
     if points_cam.data_ptr() % 16:
         raise ValueError("filter_flying_pixels: points_cam must be "
                          "16-byte aligned (read as float4)")

@@ -1,6 +1,6 @@
 """Kernel 4: the fused raster front (``csrc/fused_unproject_rle.cu``).
 
-From masked metric depth, in one kernel pair: unprojection, the world and
+From masked metric depth, in one kernel: unprojection, the world and
 crop transforms, the crop test, the clamped cell index, the cell-relative
 10/10/12-bit quantization and the level-1 run-length reduction, giving
 the raster's (cell, partial-sum) rows without materializing the point
@@ -34,10 +34,11 @@ launches = 0
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p)
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 LANES = 128
-MAX_CAMERAS = 256   # the kernel keeps [C, 32] parameters in shared memory
+# the kernel keeps [C, 32] parameters in shared memory beside a tile's keys
+# and packed values (16 KB), within the 48 KB a kernel gets without opting in
+MAX_CAMERAS = 128
 
 
 def padded_width(width: int) -> int:
@@ -169,7 +170,7 @@ def unproject_voxelize_l1(depth_m: torch.Tensor, intr: torch.Tensor,
                              f"{shape} on {depth_m.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
     wp = padded_width(w)
-    if not 1 <= c <= MAX_CAMERAS or capacity < 1 or c * h * wp >= 2 ** 31:
+    if not 1 <= c <= MAX_CAMERAS or capacity < 1 or c * h * wp > 2 ** 30:
         raise ValueError(f"unproject_voxelize_l1: unsupported C={c}, "
                          f"capacity={capacity}, stream {c * h * wp}")
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import _build
@@ -178,18 +179,20 @@ def unproject_voxelize_l1(depth_m: torch.Tensor, intr: torch.Tensor,
     sentinel = grid.num_cells
     params = camera_params(intr, tf_world, tf_crop)
     consts = grid_consts(grid, crop_min, crop_max, dev)
-    out_keys = torch.full((capacity,), sentinel, dtype=torch.int32,
-                          device=dev)
-    out_sums = torch.zeros((capacity, 4), dtype=torch.float32, device=dev)
-    tiles = max(_build.scan_tiles(c * h * wp), 1)
-    scratch = torch.empty((2, tiles), dtype=torch.int32, device=dev)
-    counts = torch.zeros((3,), dtype=torch.int32, device=dev)
+    # the kernel writes every row: runs below the count, the sentinel and
+    # zeros past it; the counts are the first three words of its scratch,
+    # zeroed with the look-back descriptors by the launch's one memset
+    out_keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
+    out_sums = torch.empty((capacity, 4), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        (_build.scratch_bytes("fusion_unproject_rle", c * h * wp),),
+        dtype=torch.uint8, device=dev)
     p = _build.ptr
     status = fn(p(depth_m), p(params), p(consts), c, h, w, wp, sentinel,
-                int(force_break), capacity, p(scratch[0]), p(scratch[1]),
-                p(counts), p(out_keys), p(out_sums),
-                _build.stream_ptr(depth_m))
+                int(force_break), capacity, p(scratch), p(out_keys),
+                p(out_sums), _build.stream_ptr(depth_m))
     _build.check(status, "unproject_voxelize_l1")
     global launches
     launches += 1
+    counts = scratch[:12].view(torch.int32)
     return out_keys, out_sums, counts[0], counts[1], counts[2]

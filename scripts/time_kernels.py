@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of the engine's CUDA kernels on one link frame, for an A/B
-of two checkouts of the port on one GPU.
+"""Device time of the port's four CUDA kernels on one link frame, for an
+A/B of two checkouts of the port on one GPU.
 
     python3 scripts/time_kernels.py [--root DIR] [--label NAME] [--split]
 
@@ -8,10 +8,12 @@ Imports ``ros_gpu_depthmap_fusion_tpu_torch`` from ``DIR`` (default: this
 checkout; it builds that checkout's kernels) and ``chip_smoke.py``'s scene,
 configuration and timers from this checkout. Runs ``bench.py``'s link
 configuration (``chip_smoke.link_config``) for 8 frames, records the
-kernels' calls of frame ``chip_smoke.RECORD_FRAME`` and, on those inputs,
-prints one JSON line: the card and its power limit, the label, and per
-kernel and frame the device ms (``torch.profiler``, 20 calls after 3
-warm-ups), the call ms (CUDA events around a call, median of 20) and the
+kernels' calls of frame ``chip_smoke.RECORD_FRAME`` and, on those inputs
+(kernel 4, which the engine does not call: on that frame's masked metric
+depth, as ``chip_smoke.py``'s fused phase), prints one JSON line: the card
+and its power limit, the label, and per kernel and frame the device ms
+(``torch.profiler``, 20 calls after 3 warm-ups), the call ms (CUDA events
+around a call, median of 20) and the
 bound ms; for compact also the boolean-index library call. Run it for two
 roots in turns (A, B, B, A) in one process group on one card to compare
 them.
@@ -59,7 +61,7 @@ def main():
     from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
     from ros_gpu_depthmap_fusion_tpu_torch.ops import mask_ops, voxelize
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
-        compact, flying_pixels, segreduce)
+        compact, flying_pixels, fused_unproject_rle, segreduce)
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline import engine as engmod
 
     kmods = {"segreduce": segreduce, "flying_pixels": flying_pixels,
@@ -73,7 +75,8 @@ def main():
     eng = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=1)
     mods = [("segreduce", voxelize, "segreduce"),
             ("flying_pixels", engmod, "filter_flying_pixels"),
-            ("compact", mask_ops, "compact_rows")]
+            ("compact", mask_ops, "compact_rows"),
+            ("unproject", engmod, "unproject_depthmaps")]
     _, _, _, _, calls = cs.run_engine(torch, eng, scene, intr, 8, kmods,
                                       record=(cs.RECORD_FRAME, mods))
     out = dict(gpu=cs.gpu_line(), label=args.label,
@@ -88,6 +91,13 @@ def main():
             words, mask = calls[name][0][0][:2]
             row["library_ms"] = cs.device_ms(torch, lambda: words[mask])
         out["kernels"][name] = row
+    _, _, fargs = cs.fused_inputs(torch, calls, cfg, eng.grid)
+
+    def fused():
+        return fused_unproject_rle.unproject_voxelize_l1(*fargs)
+    out["kernels"]["fused_unproject_rle"] = dict(
+        ms=cs.device_ms(torch, fused), call_ms=cs.cuda_ms(torch, fused),
+        bound_ms=cs.roofline(*cs.fused_work(fargs, int(fused()[4])))[0])
     if args.split:
         out["segreduce_split_us"] = segreduce_split(torch, cs, segreduce,
                                                     calls["segreduce"][0])

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch twins on the card,
 at edge-case shapes (empty and ragged tiles, sentinels, forced breaks,
-capacity overflow, every column count, several rings; for the fused front,
-widths below, at and above 128, clamped cells and points outside the
-crop), small engines card == CPU on the raw and the coded link, and the
+capacity overflow, every column count, several rings, images that cross,
+fill or are smaller than the flying-pixel kernel's tiles; for the fused
+front, widths below, at and above 128, clamped cells, points outside the
+crop and runs across many tiles), small engines card == CPU on the raw
+and the coded link, and the
 mapping on the card == CPU (device segmentation up to ``bench.py``'s
 400x400x21 grid, the sparse mapping cycle, the component with mapping
 on). They need an NVIDIA GPU and nvcc and skip elsewhere; on a GPU
@@ -143,6 +145,71 @@ def test_flying_pixels_kernel_equals_twin(dev, size, rot45):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert 0 < int(got.sum()) < int(mask.sum())
+
+
+def _surface(rng, c, h, w, holes):
+    """Camera-frame points of a sloped surface with a depth step and noise,
+    and a mask with the given share of holes."""
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    z = 1.5 + 0.01 * xx + 0.02 * yy + 0.002 * rng.standard_normal((c, h, w))
+    z[:, :, w // 2:] += 0.9
+    x = (xx - (w - 1) / 2) / 40.0 * z
+    y = (yy - (h - 1) / 2) / 40.0 * z
+    pts = np.stack([x, y, z, np.ones_like(z)], -1).astype(np.float32)
+    mask = rng.random((c, h, w)) >= holes
+    return pts.reshape(c, h * w, 4), mask.reshape(c, h * w)
+
+
+@pytest.mark.parametrize("c,h,w,size,rot45,holes", [
+    # across the 32 x 8 tiles, every ring count, rot45 on and off
+    (1, 133, 300, 0, False, 0.05), (1, 133, 300, 0, True, 0.05),
+    (1, 133, 300, 1, False, 0.05), (1, 133, 300, 1, True, 0.05),
+    (1, 133, 300, 2, False, 0.05), (1, 133, 300, 2, True, 0.05),
+    (1, 133, 300, 3, False, 0.05), (1, 133, 300, 3, True, 0.05),
+    (2, 480, 848, 1, True, 0.02),          # the main path's image
+    (3, 21, 131, 2, True, 0.05),           # w % 4 != 0: unaligned rows
+    (2, 16, 66, 1, True, 0.05),            # w % 4 == 2: a ragged last word
+    (2, 5, 7, 1, True, 0.0),               # smaller than a tile
+    (1, 2, 2, 1, True, 0.0), (1, 4, 4, 2, True, 0.0),   # h = w = 2 size:
+    (1, 6, 6, 3, False, 0.0),              # every pixel is on a border
+    (1, 3, 3, 1, True, 0.0),               # one pixel passes the border
+    (2, 40, 100, 2, True, 1.0),            # all invalid
+    (2, 40, 100, 2, True, 0.0),            # all valid
+    (1, 64, 200, 8, True, 0.0),            # the widest halo the kernel takes
+])
+def test_flying_pixels_kernel_tiles_equal_twin(dev, c, h, w, size, rot45,
+                                               holes):
+    """The shared-memory tile kernel equals its twin bit for bit where
+    images cross, fill or are smaller than its tiles."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
+        flying_pixels as m)
+    rng = np.random.default_rng(zlib.crc32(f"{c}/{h}/{w}/{size}".encode()))
+    pts, mask = _surface(rng, c, h, w, holes)
+    pts_t = torch.from_numpy(pts).to(dev)
+    mask_t = torch.from_numpy(mask).to(dev)
+    before = m.launches
+    got = m.filter_flying_pixels(pts_t, mask_t, h, w, size, 0.4, rot45, 6.0)
+    ref = m.filter_flying_pixels_plain(pts_t, mask_t, h, w, size, 0.4, rot45,
+                                       6.0)
+    torch.cuda.synchronize()
+    assert m.launches == before + 1
+    assert torch.equal(got, ref)
+    if holes == 1.0 or min(h, w) <= 2 * size:
+        assert not bool(got.any())
+    elif (h, w) == (133, 300):
+        assert 0 < int(got.sum()) < int(mask.sum())
+
+
+def test_flying_pixels_kernel_refuses_wider_halo(dev):
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
+        flying_pixels as m)
+    pts, mask = _surface(np.random.default_rng(0), 1, 32, 32, 0.0)
+    before = m.launches
+    with pytest.raises(ValueError, match="filter_size"):
+        m.filter_flying_pixels(torch.from_numpy(pts).to(dev),
+                               torch.from_numpy(mask).to(dev), 32, 32,
+                               m.MAX_FILTER_SIZE + 1, 0.4, True, 3.0)
+    assert m.launches == before
 
 
 def test_engine_on_card_equals_cpu(dev):
@@ -310,6 +377,80 @@ def test_fused_unproject_kernel_equals_twin(dev, c, h, w, cap, force_break,
         assert torch.equal(g, r)
     if c > 1:
         assert 0 < int(got[4]) < c * h * w
+
+
+def _fused_edge_case(name, dev):
+    """(depth, intr, tfs, grid, crop, capacity, force_break) of an edge
+    case of kernel 4 on the single-pass reduce-by-key (2,048-position
+    tiles)."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    grid = VoxelGrid(lower=(-10.0, -10.0, 0.0), upper=(10.0, 10.0, 2.5),
+                     cell_size=(0.1, 0.1, 0.12))
+    crop = ((-8.0, -8.0, -1.0), (8.0, 8.0, 3.0))
+    if name == "runs_cross_tiles":
+        # W == Wp and no forced breaks: runs cross rows and tiles, 75 tiles
+        c, h, w, cap, fb = 2, 300, 256, 1 << 17, 0
+    elif name == "long_runs_cross_tiles":
+        # 1 m cells: runs of tens of pixels, many of them across a tile edge
+        c, h, w, cap, fb = 2, 300, 256, 1 << 17, 0
+        grid = VoxelGrid(lower=(-10.0, -10.0, 0.0), upper=(10.0, 10.0, 2.5),
+                         cell_size=(1.0, 1.0, 1.25))
+    elif name == "one_run_over_many_tiles":
+        # one 1,000 m cell, no holes but two: the carry look-back passes
+        # more than 32 tiles without a run head (the sums stay below 2^24:
+        # every point lies within 16/1024 of the cell's lower corner)
+        c, h, w, cap, fb = 2, 300, 256, 64, 0
+        grid = VoxelGrid(lower=(-8.0, -8.0, -1.0), upper=(992.0, 992.0, 999.0),
+                         cell_size=(1000.0, 1000.0, 1000.0))
+    elif name == "overflow_in_a_later_tile":
+        c, h, w, cap, fb = 4, 64, 256, 3000, 128
+    elif name == "all_invalid":
+        c, h, w, cap, fb = 3, 40, 200, 512, 128
+    else:
+        raise KeyError(name)
+    depth, intr, tfs = _front_inputs(rng, c, h, w, dev)
+    if name == "one_run_over_many_tiles":
+        depth = torch.full_like(depth, 2.0)
+        depth.view(-1)[[70000, 140000]] = 0.0
+    if name == "all_invalid":
+        depth = torch.zeros_like(depth)
+    return depth, intr, tfs, grid, crop, cap, fb
+
+
+@pytest.mark.parametrize("name", [
+    "runs_cross_tiles", "long_runs_cross_tiles", "one_run_over_many_tiles",
+    "overflow_in_a_later_tile", "all_invalid"])
+def test_fused_unproject_kernel_edges_equal_twin(dev, name):
+    """Kernel 4 equals its twin in all five outputs, the valid count
+    included, on the edges of its tiles and look-back, and gives the same
+    bits twice."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
+        fused_unproject_rle as m)
+    depth, intr, tfs, grid, crop, cap, fb = _fused_edge_case(name, dev)
+    got = m.unproject_voxelize_l1(depth, intr, tfs, tfs, grid, *crop, cap, fb)
+    again = m.unproject_voxelize_l1(depth, intr, tfs, tfs, grid, *crop, cap,
+                                    fb)
+    ref = m.unproject_voxelize_l1_plain(depth, intr, tfs, tfs, grid, *crop,
+                                        cap, fb)
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, r) and torch.equal(a, r)
+    runs, valid = int(ref[3]), int(ref[4])
+    if name.endswith("runs_cross_tiles"):
+        assert depth.numel() > 32 * 2048 and 0 < runs < cap
+    if name == "one_run_over_many_tiles":
+        assert runs == 3 and valid == depth.numel() - 2
+        assert float(ref[1].max()) < 2 ** 24
+    if name == "overflow_in_a_later_tile":
+        assert runs > cap and int(ref[2]) == cap
+        # the cut falls past the first tile
+        first = m.unproject_voxelize_l1_plain(
+            depth[:1, :8].contiguous(), intr[:1], tfs[:1], tfs[:1], grid,
+            *crop, cap, fb)
+        assert int(first[3]) < cap
+    if name == "all_invalid":
+        assert runs == 0 and valid == 0
 
 
 def test_link_engine_on_card_equals_cpu(dev):

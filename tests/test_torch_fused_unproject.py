@@ -82,7 +82,7 @@ def run_jax(depth, intr, tfw, tfc, grid, cap, op_by_op=True):
     return [np.asarray(o) for o in out]
 
 
-def run_jax_as_written(depth, intr, tfw, tfc, grid, cap):
+def run_jax_as_written(depth, intr, tfw, tfc, grid, cap, force_break=128):
     """The JAX kernel's front (``fused_unproject_rle.py:56-106``) in jnp,
     op by op, over the padded stream, reduced by ``rle_reduce_pallas``."""
     c, h, w = depth.shape
@@ -124,16 +124,16 @@ def run_jax_as_written(depth, intr, tfw, tfc, grid, cap):
         vals = jnp.stack([qx * m, qy * m, qz * m, m], -1).reshape(-1, 4)
         keys = key.astype(jnp.int32).reshape(-1)
         out = rle_reduce_pallas(keys, vals, cap, grid.num_cells,
-                                interpret=True, force_break=128)
+                                interpret=True, force_break=force_break)
         valid = jnp.sum(m).astype(jnp.int32)
     return [np.asarray(o) for o in out[:4]] + [np.asarray(valid)]
 
 
-def run_twin(depth, intr, tfw, tfc, grid, cap):
+def run_twin(depth, intr, tfw, tfc, grid, cap, force_break=128):
     return [o.numpy() for o in fk.unproject_voxelize_l1(
         torch.from_numpy(depth), torch.from_numpy(intr),
         torch.from_numpy(tfw), torch.from_numpy(tfc), grid, CROP[0],
-        CROP[1], cap)]
+        CROP[1], cap, force_break)]
 
 
 def l2(keys, sums, count):
@@ -172,6 +172,37 @@ def test_twin_equals_jax_kernel_as_written(c, h, w, cap_frac, voxel, cell):
         gs = grid.grid_size                         # clamped points
         gx = got[0][:n] % gs[0]
         assert ((gx == 0) | (gx == gs[0] - 1)).any()
+
+
+@pytest.mark.parametrize("c,h,w,cap_frac,cell", [
+    (2, 6, 256, 1.0, None),              # W == Wp, two blocks a row
+    (2, 6, 256, 1.0, (1.0, 1.0, 1.25)),  # ... long runs, in 1 m cells
+    (2, 6, 128, 0.05, None),             # capacity below the run count
+    (1, 3, 256, 0.2, (0.1, 0.1, 0.12)),  # ... at bench.py's cell sizes
+])
+def test_twin_equals_jax_kernel_as_written_without_forced_breaks(
+        c, h, w, cap_frac, cell):
+    """``force_break=0`` on a stream without padding columns (``W == Wp``):
+    nothing but a key change or an invalid pixel ends a run, so runs pass
+    the 128th columns (and, on the card, the kernel's tile edges). Exact in
+    all five outputs, the valid count included."""
+    depth, intr, tfw, tfc, grid = scene(c, h, w, seed=5,
+                                        cell=cell or (0.25, 0.25, 0.25))
+    cap = max(1, int(cap_frac * c * h * w))
+    ref = run_jax_as_written(depth, intr, tfw, tfc, grid, cap, force_break=0)
+    got = run_twin(depth, intr, tfw, tfc, grid, cap, force_break=0)
+    for name, a, b in zip(("keys", "sums", "count", "true_count", "valid"),
+                          got, ref):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    n, true_n, valid = int(got[2]), int(got[3]), int(got[4])
+    assert 0 < valid < c * h * w and n == min(true_n, cap)
+    if cap_frac < 1.0:
+        assert true_n > cap
+    else:
+        # fewer runs than with a break at every 128th position
+        forced = run_twin(depth, intr, tfw, tfc, grid, cap)
+        assert true_n < int(forced[3]) and valid == int(forced[4])
+    assert (got[0][n:] == grid.num_cells).all() and not got[1][n:].any()
 
 
 @pytest.mark.parametrize("op_by_op", [True, False])

@@ -120,7 +120,7 @@ def test_compact_twin_edges_match_pallas(n, cap, p, d):
     assert int(cnt) == int(rcnt) and int(true) == int(mask.sum())
 
 
-def _points(h, w, c, seed):
+def _points(h, w, c, seed, holes=0.05):
     """Camera-frame points of a sloped surface with a depth step, holes
     on the 128 x 8 tile edges and random holes."""
     rng = np.random.default_rng(seed)
@@ -130,7 +130,7 @@ def _points(h, w, c, seed):
     x = (xx - (w - 1) / 2) / 40.0 * z
     y = (yy - (h - 1) / 2) / 40.0 * z
     pts = np.stack([x, y, z, np.ones_like(z)], -1).astype(np.float32)
-    mask = rng.random((c, h, w)) > 0.05
+    mask = rng.random((c, h, w)) >= holes
     mask[:, :, [k for k in (127, 128) if k < w]] = False
     mask[:, [k for k in (7, 8) if k < h], :] = False
     return pts.reshape(c, h * w, 4), mask.reshape(c, h * w)
@@ -162,3 +162,35 @@ def test_flying_pixels_twin_edges_match_jax(h, w, size, rot45):
                 or g[:, :, :size].any() or g[:, :, w - size:].any())
     if (h, w) == (13, 133):
         assert 0 < g.sum() < m.sum()
+
+
+@pytest.mark.parametrize("h,w,size,rot45", [
+    # h = w = 2 * filter_size: every pixel is within the ring of a border
+    (2, 2, 1, False), (2, 2, 1, True), (4, 4, 2, True), (6, 6, 3, False),
+    (6, 6, 3, True),
+    # one pixel more: only the centre pixel passes the border rule
+    (3, 3, 1, True), (5, 5, 2, True),
+    # narrower than the four pixels the CUDA kernel stores as one word
+    (9, 3, 1, False), (9, 3, 1, True), (9, 2, 1, True), (11, 1, 1, True)])
+def test_flying_pixels_twin_small_images_match_jax(h, w, size, rot45):
+    """Images smaller than ``2 * filter_size + 1`` or narrower than four
+    pixels: equal to the JAX stencil run op by op, and to the Pallas kernel
+    in interpret mode outside 1e-5 of the cos threshold."""
+    pc, m = _points(h, w, 2, seed=17 * h + w + size, holes=0.0)
+    thr, maxd = 0.4, 10.0
+    got = filter_flying_pixels_plain(T(pc), T(m), h, w, size, thr, rot45,
+                                     maxd)
+    with jax.disable_jit():
+        ref = np.asarray(filter_flying_pixels(
+            jnp.asarray(pc), jnp.asarray(m), h, w, size, thr, rot45, maxd))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    pallas = np.asarray(filter_flying_pixels_pallas(
+        jnp.asarray(pc), jnp.asarray(m), h, w, size, thr, rot45, maxd,
+        interpret=True))
+    band = _cos_margin(pc, m, h, w, size, rot45, thr) < 1e-5
+    assert not ((got.numpy() != pallas) & ~band).any()
+    g = got.numpy().reshape(2, h, w)
+    inner = g[:, size:h - size, size:w - size]
+    assert g.sum() == inner.sum()          # nothing within size of a border
+    if min(h, w) <= 2 * size:
+        assert not g.any()
