@@ -18,15 +18,33 @@ each:
    24 frames then ``flush()``; every kernel's launch counter, counted from
    0 before the run, must rise by its expected count each step (kernel
    4's by none: its launches per frame are measured here); frame 0 must
-   be an I-keyframe and the rest p4 P-frames; the partials must stay within capacity; the last
-   frame re-run with the plain twins from the same state, and a
+   be an I-keyframe and the rest p4 P-frames; the partials must stay
+   within capacity; the last frame re-run with the plain twins from the same state, and a
    ``pipeline_depth=0`` engine on the same frames, must give equal
    outputs; so must a small rig of this configuration on the card and on
    the CPU;
 4. raw link: the engine on the raw depth link (``depth_link_codec="none"``,
    768k partials: the raw series has more level-1 runs), 8 frames, with
    the same launch, plain-twin and small-rig checks;
-5. mapping (``bench.py:443-537``, field for field): a fresh link engine
+5. publish: ``FusionConfig()``'s defaults at the bench rig's size (its
+   rig, lidar, crop, voxel and rollbuffer fields; the ``"dpcm"`` link,
+   the raw cloud and the dense occupancy emitted, ``voxel_mean_mode=
+   "auto"``, default partials capacity, 262,144 output cells, no sparse
+   blocks): the non-split step, ``FusionEngine(cfg, "cuda",
+   pipeline_depth=1)``, 8 frames then ``flush()``. Launches a step as
+   expected for this path (``EXPECTED``), partials within capacity, the
+   last frame's plain-twin replay equal, a ``pipeline_depth=0`` engine
+   equal, the same frames at ``"packed"`` equal in every output but the
+   partials count (rle == packed at full size; the largest cell's count
+   printed), one frame each at ``"exact"`` and with occupied cells equal
+   to its plain replay; ms/frame of each mode, and of "auto" and
+   "packed" in turns on fresh engines, no speed claimed. Then a
+   heterogeneous rig (4 cameras at 848x480 and 4 at 640x360, ``"dpcm"``
+   per group), 6 frames, with the same launch, plain-twin and
+   pipelined == synchronous checks; then small rigs card == CPU in each
+   mode (auto = rle, packed, exact, occupied, no voxel filter, radius
+   filter, heterogeneous);
+6. mapping (``bench.py:443-537``, field for field): a fresh link engine
    with ``eng.mapping = MappingPipeline(cfg.replace(
    mapping_detail_min_area=-1.0), eng.grid, "cuda")``, 12 frames to fill
    the decaying history; a warm ``process_sparse`` cycle on the last
@@ -40,11 +58,14 @@ each:
    a result, and every step must launch the engine kernels. The same
    paced loop with mapping off runs before and after it, for the fused
    frame rate without the worker.
-6. kernels (after the loops, so that ``torch.profiler``, which times
+7. kernels (after the loops, so that ``torch.profiler``, which times
    them, cannot touch the host-bound loops): each kernel's inputs are
-   recorded from one frame of the link phase; the kernel is checked
-   against its plain PyTorch twin on them (exact), flying_pixels also
-   with 2 and 3 rings on two of that frame's cameras. Per frame
+   recorded from one frame of the link phase, and compact's and
+   segreduce's also from a publish frame (the raw cloud's compaction,
+   level 1 + 2 over the compacted cloud) and a packed frame (one
+   reduction of the sorted stream); the kernel is checked against its
+   plain PyTorch twin on them (exact), flying_pixels also with 2 and 3
+   rings on two of that frame's cameras. Per frame
    (segreduce: both levels) it prints the kernel's device ms (the
    summed device activity of a call, kernels and fills,
    from ``torch.profiler`` over 20 calls after 3 warm-ups: no host gaps),
@@ -54,17 +75,19 @@ each:
    TFLOP/s, whichever is larger), its launches per frame, the twin's
    device and call ms, and for compact ``library_ms``, the device ms of
    ``rows[flags]``, the one PyTorch call that computes the same rows;
-7. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
+   then each publish mode's whole step, replayed from its tapped state:
+   device ms and device activities a step, and its call ms;
+8. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
    path) on the recorded frame's masked metric depth, against its twin
    (exact in all five outputs, with ``force_break`` 128 and, runs
-   crossing its tiles, 0), timed as in phase 6 beside its twin and
+   crossing its tiles, 0), timed as in phase 7 beside its twin and
    the engine's chain (unproject, crop, cell index, quantize, level-1
    segreduce), and the level-2 closure against that chain.
 
 Then one JSON line with the kernels' names, sources, launch counts (and
-launches per frame), errors, device, call, twin, bound and library times,
-the ``nvidia-smi`` line, and, last, ``{"ok": true, "device":
-...}``. Any failure is an uncaught exception and a non-zero exit; without a
+launches per frame, also by path), errors, device, call, twin, bound and
+library times (also by timed call site), the ``nvidia-smi`` line, and,
+last, ``{"ok": true, "device": ...}``. Any failure is an uncaught exception and a non-zero exit; without a
 CUDA device it exits non-zero before printing any result.
 """
 
@@ -87,11 +110,34 @@ MAP_WARM_FRAMES = 12   # the decaying history (lifetime 10) at steady state
 MAP_FRAMES = 60        # the paced mapping-on loop
 MAP_LAG = 4            # frames between a step and its drain (bench.py:500)
 RECORD_FRAME = 6       # the recorded step's frame (lidar window full)
-# launches of each kernel in one engine step (kernel 4 is not on its path)
-EXPECTED_LAUNCHES = {"segreduce": 2, "flying_pixels": 1, "compact": 1,
-                     "fused_unproject_rle": 0}
+PUBLISH_FRAMES = 8
+HETERO_FRAMES = 6
+# the heterogeneous rig: 4 cameras at 848x480 and 4 at 640x360
+HETERO_SHAPES = ((H, W),) * 4 + ((360, 640),) * 4
 ENGINE_KERNELS = ("segreduce", "flying_pixels", "compact")
 KERNELS = ENGINE_KERNELS + ("fused_unproject_rle",)
+
+
+def _launches(segreduce, flying_pixels, compact):
+    return {"segreduce": segreduce, "flying_pixels": flying_pixels,
+            "compact": compact, "fused_unproject_rle": 0}
+
+
+# launches of each kernel in one engine step, by path (kernel 4 is on
+# none). Split-domain step: level 1 + level 2, one filter, the sparse
+# blocks. Non-split step: the raw cloud's compaction, then rle (level 1 +
+# level 2), packed (one reduction of the sorted stream), exact (the run
+# ends compacted) or occupied (the occupied ids compacted); a
+# heterogeneous rig filters each of its two resolution groups.
+EXPECTED = {
+    "link": _launches(2, 1, 1), "raw": _launches(2, 1, 1),
+    "mapping": _launches(2, 1, 1),
+    "publish": _launches(2, 1, 1), "publish_sync": _launches(2, 1, 1),
+    "publish_packed": _launches(1, 1, 1),
+    "publish_exact": _launches(0, 1, 2),
+    "publish_occupied": _launches(0, 1, 2),
+    "hetero": _launches(2, 2, 1), "hetero_sync": _launches(2, 2, 1),
+}
 REPLACES = {
     "segreduce": "ros_gpu_depthmap_fusion_tpu/ops/pallas/segreduce.py:233",
     "flying_pixels":
@@ -129,6 +175,26 @@ def link_config(FusionConfig, h=H, w=W, c=C, lidar_pts=LIDAR_PTS, **kw):
         emit_raw_points=False,
         emit_occupancy_u8=False,
         occupancy_sparse_capacity=4096,
+    )
+    base.update(kw)
+    return FusionConfig(**base)
+
+
+def publish_config(FusionConfig, h=H, w=W, c=C, lidar_pts=LIDAR_PTS, **kw):
+    """``bench.py``'s rig, lidar, crop, voxel and rollbuffer fields with
+    every other field at ``FusionConfig()``'s default: the ``"dpcm"``
+    link, the raw cloud and the dense occupancy emitted,
+    ``voxel_mean_mode="auto"``, default partials capacity
+    (``max(2^16, N // 4)``), 262,144 output cells, no sparse blocks."""
+    base = dict(
+        num_depth_streams=c, depth_height=h, depth_width=w,
+        num_point_sequences=N_LIDAR_STREAMS,
+        crop_min=(-20, -20, 0), crop_max=(20, 20, 2.5),
+        voxel_min=(-20, -20, 0), voxel_max=(20, 20, 2.5),
+        voxel_size=(0.1, 0.1, 0.12),
+        voxel_occupancy_lifetime=10,
+        rollbuffer_point_capacity=98304,
+        max_points_per_sequence=N_LIDAR_STREAMS * lidar_pts,
     )
     base.update(kw)
     return FusionConfig(**base)
@@ -216,11 +282,18 @@ class Scene:
         return out
 
     def stage(self, eng, intr, f):
-        """Stage frame ``f`` into ``eng``; returns its timestamp."""
+        """Stage frame ``f`` into ``eng``; returns its timestamp. ``intr``
+        is one camera model or a list, one a camera; a camera whose stream
+        is smaller than the scene (a heterogeneous rig) gets the top-left
+        crop of its image."""
         d = self.depths[f % N_STAGED]
         cams = self.cams_at(f)
+        shapes = eng.cfg.resolved_stream_shapes
         for i in range(self.c):
-            eng.add_depthmap(i, d[i], intr, cams[i], cams[i])
+            h, w = shapes[i]
+            eng.add_depthmap(i, d[i][:h, :w],
+                             intr[i] if isinstance(intr, list) else intr,
+                             cams[i], cams[i])
         for arc in self.arcs[f % N_STAGED]:
             eng.add_point_sequence(arc, sec=10 + (f // 30),
                                    nsec=int((f % 30) * 33e6),
@@ -254,14 +327,21 @@ def cuda_ms(torch, fn, reps=20, warm=3):
 
 
 def device_ms(torch, fn, reps=20, warm=3):
-    """Device time of one call of ``fn`` in ms: the summed durations of
-    the device activities (kernels, fills, copies) that ``reps`` calls
-    launch, from ``torch.profiler``, over ``reps``, after ``warm``
-    warm-up calls. Host gaps between launches are not counted. The
-    profiler now and then hands back a trace that lacks some or all of
-    its device activities (seen about once in a hundred traces on the
-    H100), so the measurement is taken twice, a third time if the two
-    disagree on the number of activities, and the fullest trace counts."""
+    """Device time of one call of ``fn`` in ms (see :func:`device_profile`).
+    """
+    return device_profile(torch, fn, reps, warm)[0]
+
+
+def device_profile(torch, fn, reps=20, warm=3):
+    """(device ms, device activities) of one call of ``fn``: the summed
+    durations and the number of the device activities (kernels, fills,
+    copies) that ``reps`` calls launch, from ``torch.profiler``, over
+    ``reps``, after ``warm`` warm-up calls. Host gaps between launches are
+    not counted. The profiler now and then hands back a trace that lacks
+    some or all of its device activities (seen about once in a hundred
+    traces on the H100), so the measurement is taken twice, a third time
+    if the two disagree on the number of activities, and the fullest
+    trace counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -281,7 +361,7 @@ def device_ms(torch, fn, reps=20, warm=3):
     count, total = max(traces, key=lambda t: t[0])   # the first fullest
     if count < reps or total <= 0:
         raise RuntimeError("torch.profiler recorded no device activity")
-    return total / 1e3 / reps
+    return total / 1e3 / reps, count / reps
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
@@ -392,10 +472,21 @@ def max_abs_err(torch, a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def assert_outputs_equal(torch, got, ref, what):
+def assert_outputs_equal(torch, got, ref, what, skip=()):
     for k in ref._fields:
-        if not torch.equal(getattr(got, k).cpu(), getattr(ref, k).cpu()):
+        if k not in skip and not torch.equal(getattr(got, k).cpu(),
+                                             getattr(ref, k).cpu()):
             raise AssertionError(f"{what}: {k} differs")
+
+
+def partials_capacity(cfg):
+    """The level-1 partials capacity a step runs with: the configured one,
+    or by default ``max(2^16, N // 4)`` of the step's N rows (the
+    compacted cloud's capacity on the non-split step)."""
+    if cfg.voxelize_partials_capacity > 0:
+        return cfg.voxelize_partials_capacity
+    n = cfg.total_point_capacity
+    return min(max(1 << 16, n // 4), n)
 
 
 def check_frame_outputs(cfg, eng, outs, what):
@@ -403,12 +494,12 @@ def check_frame_outputs(cfg, eng, outs, what):
     level-1 partials count."""
     import torch
     max_partials = 0
+    cap = partials_capacity(cfg)
     for f, o in enumerate(outs):
         vp, fc = int(o.vox_partials_count), int(o.fused_count)
         max_partials = max(max_partials, vp)
-        if vp > cfg.voxelize_partials_capacity:
-            raise AssertionError(f"{what} frame {f}: partials {vp} > "
-                                 f"{cfg.voxelize_partials_capacity}")
+        if vp > cap:
+            raise AssertionError(f"{what} frame {f}: partials {vp} > {cap}")
         if fc >= cfg.voxelize_output_capacity:
             raise AssertionError(f"{what} frame {f}: fused_count {fc} at cap")
         if f >= 1 and int(o.seq_selected_count) <= 0:
@@ -422,16 +513,16 @@ def check_frame_outputs(cfg, eng, outs, what):
     return max_partials
 
 
-def run_engine(torch, eng, scene, intr, frames, kmods, step_tap=None,
-               record=None):
+def run_engine(torch, eng, scene, intr, frames, kmods, expected,
+               step_tap=None, record=None):
     """Drive ``eng`` through ``frames`` frames (then ``flush()`` when
     pipelined) through the user entry points. Every step must launch each
-    engine kernel its expected number of times. ``step_tap`` receives
+    engine kernel its ``expected`` number of times. ``step_tap`` receives
     (state before, inputs, depth_bits) of every step; ``record`` =
     (frame, mods) records that frame's kernel calls. Returns (outputs,
-    depth_bits per output, wall ms of frames 4.. including a final
-    synchronize, per-frame host ms of process() and of the step's
-    enqueue, recorded calls)."""
+    depth_bits per output, wall ms a frame of frames 4.. (frame 1.. of a
+    shorter run) including a final synchronize, per-frame host ms of
+    process() and of the step's enqueue, recorded calls)."""
     orig_step = eng.step
     step_ms = []
 
@@ -443,16 +534,17 @@ def run_engine(torch, eng, scene, intr, frames, kmods, step_tap=None,
         out = orig_step(inp, depth_bits)
         step_ms.append((time.perf_counter() - t) * 1e3)
         for n, m in kmods.items():
-            if m.launches - before[n] != EXPECTED_LAUNCHES[n]:
+            if m.launches - before[n] != expected[n]:
                 raise AssertionError(
                     f"step launched {n} {m.launches - before[n]} times, "
-                    f"expected {EXPECTED_LAUNCHES[n]}")
+                    f"expected {expected[n]}")
         return out
     eng.step = step
     outs, bits, host_ms, calls = [], [], [], {}
     t_steady = None
+    warm = 4 if frames > 4 else 1
     for f in range(frames):
-        if f == 4:
+        if f == warm:
             torch.cuda.synchronize()
             t_steady = time.perf_counter()
         now = scene.stage(eng, intr, f)
@@ -473,7 +565,7 @@ def run_engine(torch, eng, scene, intr, frames, kmods, step_tap=None,
         bits.append(eng.last_frame_bits)
     eng.close()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t_steady) * 1e3 / (frames - 4)
+    wall = (time.perf_counter() - t_steady) * 1e3 / (frames - warm)
     eng.step = orig_step
     return outs, bits, wall, (host_ms, step_ms), calls
 
@@ -495,15 +587,17 @@ def replay_plain(engmod, eng, tapped):
 
 
 def small_rig_equal(torch, engmod, cfg_fn, FusionConfig, transforms,
-                    PinholeIntrinsics, pipeline_depth, what):
-    """A small rig of a configuration: equal outputs on the card and on
-    the CPU, frame by frame; returns the last frame's depth_bits."""
+                    PinholeIntrinsics, pipeline_depth, what, **kw):
+    """A small rig of a configuration (``kw`` overrides fields): equal
+    outputs on the card and on the CPU, frame by frame; returns the last
+    frame's depth_bits."""
     small = cfg_fn(FusionConfig, h=48, w=64, c=2, lidar_pts=256,
-                   rollbuffer_point_capacity=2048,
-                   voxelize_partials_capacity=0,
-                   occupancy_sparse_capacity=512)
+                   **dict(dict(rollbuffer_point_capacity=2048,
+                               voxelize_partials_capacity=0,
+                               occupancy_sparse_capacity=512), **kw))
     sm_scene = Scene(transforms, seed=1, h=48, w=64, c=2, lidar_pts=256)
-    sm_intr = PinholeIntrinsics.default_for(64, 48, fov_deg=100.0)
+    sm_intr = [PinholeIntrinsics.default_for(w, h, fov_deg=100.0)
+               for h, w in small.resolved_stream_shapes]
     engines = [engmod.FusionEngine(small, device=d,
                                    pipeline_depth=pipeline_depth)
                for d in ("cuda", "cpu")]
@@ -558,6 +652,214 @@ def sparse_of(o):
     return (o.occupancy_sparse_idx, o.occupancy_sparse_words,
             o.occupancy_sparse_count, o.occupancy_sparse_true,
             o.occupancy_bits)
+
+
+def check_launches(kmods, expected, frames, what):
+    """Each kernel's counter, zeroed before the run, against its expected
+    launches a step times the steps; returns the launches."""
+    launches = {n: m.launches for n, m in kmods.items()}
+    for n, c in launches.items():
+        if c != expected[n] * frames:
+            raise AssertionError(f"{what}: {n} launched {c} times in "
+                                 f"{frames} steps, expected "
+                                 f"{expected[n] * frames}")
+    return launches
+
+
+def zero_counts(kmods):
+    for m in kmods.values():
+        m.launches = 0
+
+
+def publish_phase(torch, engmod, FusionConfig, scene, intr, kmods,
+                  record_mods, gpu):
+    """FusionConfig()'s defaults at the bench rig's size: the non-split
+    step with the raw cloud. Returns (recorded calls of an "auto" and a
+    "packed" frame, launches by path, and by mode the engine with its
+    last tapped step: state, inputs, depth_bits)."""
+    cfg = publish_config(FusionConfig)
+    launches, ms = {}, {}
+    # "auto" (rle on this grid), pipelined: the path a default user runs
+    eng = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=1)
+    last_step = []
+    zero_counts(kmods)
+    outs, bits, ms["auto"], (host_ms, step_ms), calls = run_engine(
+        torch, eng, scene, intr, PUBLISH_FRAMES, kmods, EXPECTED["publish"],
+        step_tap=keep_last(last_step), record=(RECORD_FRAME, record_mods))
+    launches["publish"] = check_launches(kmods, EXPECTED["publish"],
+                                         PUBLISH_FRAMES, "publish")
+    if len(outs) != PUBLISH_FRAMES or not all(
+            isinstance(b, int) and b > 0 for b in bits):
+        raise AssertionError(f"publish: outputs {len(outs)}, frame kinds "
+                             f"{bits} (dpcm I-frames expected)")
+    max_partials = check_frame_outputs(cfg, eng, outs, "publish")
+    grid = eng.grid
+    last = outs[-1]
+    n_raw = int(last.raw_count)
+    if tuple(last.raw_points.shape) != (cfg.total_point_capacity, 4) \
+            or n_raw <= 0 or bool(last.raw_points[n_raw:].any()) \
+            or not bool((last.raw_points[:n_raw, 3] == 1).all()):
+        raise AssertionError("publish: bad raw cloud")
+    occ = last.occupancy_u8
+    if occ.shape != (grid.num_cells,) or int((occ > 0).sum()) <= 0:
+        raise AssertionError("publish: bad dense occupancy")
+    # the largest cell: packed == rle needs its z-sum below 2^24
+    cell_ids = grid.cell_index_clamped(last.raw_points[:n_raw, :3]).long()
+    max_members = int(torch.bincount(cell_ids).max())
+    assert_outputs_equal(torch, last, replay_plain(engmod, eng, last_step[0]),
+                         "publish last frame vs the plain-twin step")
+    # pipeline_depth=0 on the same frames
+    sync = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=0)
+    zero_counts(kmods)
+    s_outs, _, ms["auto_sync"], _, _ = run_engine(
+        torch, sync, scene, intr, PUBLISH_FRAMES, kmods,
+        EXPECTED["publish_sync"])
+    launches["publish_sync"] = check_launches(
+        kmods, EXPECTED["publish_sync"], PUBLISH_FRAMES, "publish sync")
+    for f, (a, b) in enumerate(zip(outs, s_outs)):
+        assert_outputs_equal(torch, a, b, f"publish frame {f} pipelined vs "
+                             "pipeline_depth=0")
+    del sync, s_outs
+    taps = {"auto": (eng, last_step[0])}
+    # "packed" on the same frames: rle == packed at full size
+    packed = engmod.FusionEngine(cfg.replace(voxel_mean_mode="packed"),
+                                 device="cuda", pipeline_depth=1)
+    zero_counts(kmods)
+    p_tap = []
+    p_outs, _, ms["packed"], _, p_calls = run_engine(
+        torch, packed, scene, intr, PUBLISH_FRAMES, kmods,
+        EXPECTED["publish_packed"], step_tap=keep_last(p_tap),
+        record=(RECORD_FRAME, record_mods))
+    taps["packed"] = (packed, p_tap[0])
+    launches["publish_packed"] = check_launches(
+        kmods, EXPECTED["publish_packed"], PUBLISH_FRAMES, "publish packed")
+    for f, (a, b) in enumerate(zip(p_outs, outs)):
+        # mode "rle" reports its level-1 runs, the other modes 0
+        assert_outputs_equal(torch, a, b, f"publish frame {f} packed vs rle",
+                             skip=("vox_partials_count",))
+        if int(a.vox_partials_count) != 0:
+            raise AssertionError("publish packed: partials count not 0")
+    del p_outs
+    # one frame each of "exact" and occupied cells (two frames, the
+    # second replayed with the twins)
+    for mode, kw in (("exact", dict(voxel_mean_mode="exact")),
+                     ("occupied", dict(voxel_enable_average=False))):
+        e = engmod.FusionEngine(cfg.replace(**kw), device="cuda")
+        zero_counts(kmods)
+        tap = []
+        m_outs, _, ms[mode], _, _ = run_engine(
+            torch, e, scene, intr, 2, kmods, EXPECTED["publish_" + mode],
+            step_tap=keep_last(tap))
+        launches["publish_" + mode] = check_launches(
+            kmods, EXPECTED["publish_" + mode], 2, "publish " + mode)
+        assert_outputs_equal(torch, m_outs[-1], replay_plain(engmod, e,
+                                                             tap[0]),
+                             f"publish {mode} frame vs the plain-twin step")
+        if int(m_outs[-1].fused_count) <= 0 or int(
+                m_outs[-1].vox_partials_count) != 0:
+            raise AssertionError(f"publish {mode}: bad counts")
+        taps[mode] = (e, tap[0])
+        del m_outs
+    # ms/frame of "auto" and "packed" in turns, fresh pipelined engines
+    turns = []
+    for mode in ("auto", "packed", "packed", "auto"):
+        e = engmod.FusionEngine(cfg.replace(voxel_mean_mode=mode),
+                                device="cuda", pipeline_depth=1)
+        zero_counts(kmods)
+        path = "publish" if mode == "auto" else "publish_packed"
+        turns.append(run_engine(torch, e, scene, intr, PUBLISH_FRAMES, kmods,
+                                EXPECTED[path])[2])
+        del e
+    print(f"[publish] FusionConfig() defaults at bench.py's rig (dpcm "
+          f"link, raw cloud + dense occupancy, auto = rle on "
+          f"{grid.num_cells} cells), {PUBLISH_FRAMES} frames + flush: "
+          f"ms/frame auto pipelined {ms['auto']:.2f}, auto "
+          f"pipeline_depth=0 {ms['auto_sync']:.2f}, packed pipelined "
+          f"{ms['packed']:.2f}; exact {ms['exact']:.2f} and occupied "
+          f"{ms['occupied']:.2f} (one synchronous frame each); in turns, "
+          f"auto / packed / packed / auto: "
+          f"{' / '.join(f'{t:.2f}' for t in turns)} | no speed "
+          f"is claimed | host process() median "
+          f"{float(np.median(host_ms[4:])):.2f} ms (step enqueue "
+          f"{float(np.median(step_ms[4:])):.2f}) | raw cloud {n_raw} of "
+          f"{cfg.total_point_capacity}, fused {int(last.fused_count)} of "
+          f"{cfg.voxelize_output_capacity}, level-1 partials max "
+          f"{max_partials} of {partials_capacity(cfg)}, largest cell "
+          f"{max_members} points (z-sum below 2^24 up to 4,096) | launches "
+          f"{launches} | plain-twin step equal (auto, exact, occupied); "
+          f"pipelined == sync; packed == rle in every output but the "
+          f"partials count | {gpu}", flush=True)
+    return calls, p_calls, launches, taps
+
+
+def hetero_phase(torch, engmod, FusionConfig, PinholeIntrinsics, scene,
+                 kmods, gpu):
+    """A mixed rig at the bench rig's size: 4 cameras at 848x480 and 4 at
+    640x360 (the top-left crops of the scene's images) on the "dpcm"
+    link at FusionConfig()'s defaults. Returns launches by path."""
+    cfg = publish_config(FusionConfig, stream_shapes=HETERO_SHAPES)
+    intr = [PinholeIntrinsics.default_for(w, h) for h, w in HETERO_SHAPES]
+    launches = {}
+    eng = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=1)
+    last_step = []
+    zero_counts(kmods)
+    outs, bits, het_ms, _, _ = run_engine(
+        torch, eng, scene, intr, HETERO_FRAMES, kmods, EXPECTED["hetero"],
+        step_tap=keep_last(last_step))
+    launches["hetero"] = check_launches(kmods, EXPECTED["hetero"],
+                                        HETERO_FRAMES, "hetero")
+    if len(outs) != HETERO_FRAMES or not all(
+            isinstance(b, tuple) and len(b) == 2
+            and all(isinstance(g, int) and g > 0 for g in b) for b in bits):
+        raise AssertionError(f"hetero: outputs {len(outs)}, frame kinds "
+                             f"{bits} (per-group dpcm widths expected)")
+    max_partials = check_frame_outputs(cfg, eng, outs, "hetero")
+    assert_outputs_equal(torch, outs[-1],
+                         replay_plain(engmod, eng, last_step[0]),
+                         "hetero last frame vs the plain-twin step")
+    del last_step[:]
+    sync = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=0)
+    zero_counts(kmods)
+    s_outs, s_bits, sync_ms, _, _ = run_engine(
+        torch, sync, scene, intr, HETERO_FRAMES, kmods,
+        EXPECTED["hetero_sync"])
+    launches["hetero_sync"] = check_launches(
+        kmods, EXPECTED["hetero_sync"], HETERO_FRAMES, "hetero sync")
+    if s_bits != bits:
+        raise AssertionError(f"hetero: sync widths {s_bits} != {bits}")
+    for f, (a, b) in enumerate(zip(outs, s_outs)):
+        assert_outputs_equal(torch, a, b, f"hetero frame {f} pipelined vs "
+                             "pipeline_depth=0")
+    print(f"[hetero] 4 x 848x480 + 4 x 640x360 cameras, dpcm per group, "
+          f"FusionConfig() defaults, {HETERO_FRAMES} frames + flush: "
+          f"{het_ms:.2f} ms/frame pipelined, {sync_ms:.2f} pipeline_depth=0 "
+          f"(no speed claimed) | widths {bits[-1]} | raw cloud "
+          f"{int(outs[-1].raw_count)}, fused {int(outs[-1].fused_count)}, "
+          f"level-1 partials max {max_partials} of {partials_capacity(cfg)}"
+          f" | launches {launches} | plain-twin step equal; pipelined == "
+          f"sync | {gpu}", flush=True)
+    return launches
+
+
+def small_rigs_publish(torch, engmod, FusionConfig, transforms,
+                       PinholeIntrinsics, gpu):
+    """Each mode and branch of the non-split step, and a heterogeneous
+    rig, on a small rig: equal outputs on the card and on the CPU."""
+    cases = (("auto", {}), ("packed", dict(voxel_mean_mode="packed")),
+             ("exact", dict(voxel_mean_mode="exact")),
+             ("occupied", dict(voxel_enable_average=False)),
+             ("no voxel filter", dict(enable_voxel_filter=False)),
+             ("radius", dict(enable_radius_filter=True,
+                             radius_filter_radius=0.2,
+                             radius_min=(-20, -20, 0),
+                             radius_max=(20, 20, 2.5))),
+             ("hetero", dict(stream_shapes=((48, 64), (32, 40)))))
+    for what, kw in cases:
+        small_rig_equal(torch, engmod, publish_config, FusionConfig,
+                        transforms, PinholeIntrinsics, 1 if what == "hetero"
+                        else 0, f"publish {what}", **kw)
+    print(f"[small rigs] card == cpu, 6 frames each: "
+          f"{', '.join(w for w, _ in cases)} | {gpu}", flush=True)
 
 
 def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
@@ -656,8 +958,7 @@ def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
     # the same paced loop with mapping off before and after the mapping-on
     # run: what the mapping worker costs the fused frame
     dt_off = [paced(f, None)]
-    for m in kmods.values():
-        m.launches = 0
+    zero_counts(kmods)
     worker = AsyncMappingWorker(eng.mapping, packed=True)
     dt_map = paced(f + MAP_FRAMES, worker)
     launches = {n: m.launches for n, m in kmods.items()}
@@ -671,7 +972,7 @@ def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
     if cycles < 1 or latest is None:
         raise AssertionError(f"mapping worker: {cycles} cycles")
     for n, c in launches.items():
-        if c != EXPECTED_LAUNCHES[n] * MAP_FRAMES:
+        if c != EXPECTED["mapping"][n] * MAP_FRAMES:
             raise AssertionError(f"mapping loop: {n} launched {c} times in "
                                  f"{MAP_FRAMES} frames")
     print(f"[mapping] bench.py:443-537, {MAP_FRAMES} frames at 30 Hz "
@@ -693,6 +994,63 @@ def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
           f"{float(np.median(nat_ms)):.2f} ms (host clock), CPU torch "
           f"{cpu_s:.1f} s; card == native (centroid within {cen_err:.1e}) "
           f"== cpu | launches {launches} | {gpu}", flush=True)
+
+
+def time_site(torch, name, site_calls, wrapper, what, per_frame, gpu):
+    """Hold engine kernel ``name`` to its twin on each recorded call of a
+    frame (exact), and time them: per frame, the device ms, call ms,
+    bound, and the twin's; for compact also ``rows[flags]``. Prints one
+    ``[kernel]`` line and returns the numbers."""
+    kern, twin = wrapper
+    errs, shapes, per_call = [], [], []
+    tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, plain_call_ms=0.0,
+               bound_ms=0.0)
+    for a, k, _ in site_calls:
+        got = kern(*a, **k)
+        ref = twin(*a, **k)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, ref)
+        if err != 0.0:
+            raise AssertionError(f"{name} ({what}): kernel != twin, max abs "
+                                 f"err {err} (exact required)")
+        errs.append(err)
+        nbytes, ops = work_of(name, a, ref)
+        bound, bound_by = roofline(nbytes, ops)
+        one = dict(ms=device_ms(torch, lambda: kern(*a, **k)),
+                   call_ms=cuda_ms(torch, lambda: kern(*a, **k)),
+                   plain_ms=device_ms(torch, lambda: twin(*a, **k)),
+                   plain_call_ms=cuda_ms(torch, lambda: twin(*a, **k)),
+                   bound_ms=bound)
+        for key in tot:
+            tot[key] += one[key]
+        per_call.append(f"{one['ms']:.4f}/{bound:.4f}")
+        shapes.append("x".join(map(str, a[0].shape)))
+    if name == "flying_pixels":
+        # the halo wider than one pixel, at the full image size
+        pts, mask, fh, fw, _, thr, _, maxd = site_calls[0][0]
+        for rings in (2, 3):
+            wide = (pts[:2], mask[:2], fh, fw, rings, thr, True, maxd)
+            if not torch.equal(kern(*wide), twin(*wide)):
+                raise AssertionError(f"{name}: kernel != twin with "
+                                     f"{rings} rings")
+    library = None
+    if name == "compact":
+        # one PyTorch call computes the same rows: boolean indexing (its
+        # nonzero syncs the host; device time counts no gaps)
+        words, mask = site_calls[0][0][:2]
+        library = device_ms(torch, lambda: words[mask])
+    print(f"[kernel] {name} on {'+'.join(shapes)} ({what}), per frame "
+          f"({len(site_calls)} call(s), launches_per_frame {per_frame:g}): "
+          f"max_abs_err {max(errs)} | device ms {tot['ms']:.4f} (per call "
+          f"device/bound {', '.join(per_call)}) | call_ms "
+          f"{tot['call_ms']:.4f} | bound_ms {tot['bound_ms']:.4f} "
+          f"({bound_by}, {tot['bound_ms'] / tot['ms']:.2f} of the bound "
+          f"reached) | plain device {tot['plain_ms']:.4f} ms, call "
+          f"{tot['plain_call_ms']:.4f} ms | library_ms "
+          f"{'none' if library is None else f'{library:.4f}'} | {gpu}",
+          flush=True)
+    return dict(max_abs_err=max(errs), bound_by=bound_by, library_ms=library,
+                launches_per_frame=per_frame, **tot)
 
 
 def main():
@@ -767,16 +1125,13 @@ def main():
                    ("flying_pixels", engmod, "filter_flying_pixels"),
                    ("compact", mask_ops, "compact_rows"),
                    ("unproject", engmod, "unproject_depthmaps")]
-    for m in kmods.values():
-        m.launches = 0
+    zero_counts(kmods)
     outs, bits, link_ms, (host_ms, step_ms), calls = run_engine(
-        torch, eng, scene, intr, LINK_FRAMES, kmods,
+        torch, eng, scene, intr, LINK_FRAMES, kmods, EXPECTED["link"],
         step_tap=keep_last(last_step), record=(RECORD_FRAME, record_mods))
-    launches = {n: m.launches for n, m in kmods.items()}
-    for n in KERNELS:
-        if launches[n] != EXPECTED_LAUNCHES[n] * LINK_FRAMES:
-            raise AssertionError(f"link: {n} launched {launches[n]} times")
+    launches = check_launches(kmods, EXPECTED["link"], LINK_FRAMES, "link")
     per_frame = {n: launches[n] / LINK_FRAMES for n in KERNELS}
+    by_path = {"link": dict(launches)}
     if len(outs) != LINK_FRAMES:
         raise AssertionError(f"link: {len(outs)} outputs")
     if not (isinstance(bits[0], int) and bits[0] > 0) \
@@ -793,7 +1148,8 @@ def main():
     del last_step[:]
     sync = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=0)
     s_outs, s_bits, sync_ms, _, _ = run_engine(torch, sync, scene, intr,
-                                               LINK_FRAMES, kmods)
+                                               LINK_FRAMES, kmods,
+                                               EXPECTED["link"])
     if s_bits != bits:
         raise AssertionError(f"link: sync frame kinds {s_bits} != {bits}")
     for f, (a, b) in enumerate(zip(outs, s_outs)):
@@ -829,13 +1185,13 @@ def main():
     # -- 4. the raw link (PR 1's engine phase, fewer frames) --
     raw = bench_config(FusionConfig)
     eng = engmod.FusionEngine(raw, device="cuda")
-    for m in kmods.values():
-        m.launches = 0
+    zero_counts(kmods)
     last_step = []
     outs, _, raw_ms, _, _ = run_engine(
-        torch, eng, scene, intr, RAW_FRAMES, kmods,
+        torch, eng, scene, intr, RAW_FRAMES, kmods, EXPECTED["raw"],
         step_tap=keep_last(last_step))
-    raw_launches = {n: m.launches for n, m in kmods.items()}
+    raw_launches = check_launches(kmods, EXPECTED["raw"], RAW_FRAMES, "raw")
+    by_path["raw"] = raw_launches
     raw_partials = check_frame_outputs(raw, eng, outs, "raw")
     ref = replay_plain(engmod, eng, last_step[0])
     assert_outputs_equal(torch, outs[-1], ref, "raw last frame vs the "
@@ -850,69 +1206,64 @@ def main():
           flush=True)
     del eng, outs, ref
 
-    # -- 5. mapping on --
+    # -- 5. FusionConfig()'s defaults: the publish path, a heterogeneous
+    #    rig, every mode on a small rig card == CPU --
+    pub_calls, packed_calls, pub_launches, pub_taps = publish_phase(
+        torch, engmod, FusionConfig, scene, intr, kmods, record_mods, gpu)
+    by_path.update(pub_launches)
+    by_path.update(hetero_phase(torch, engmod, FusionConfig,
+                                PinholeIntrinsics, scene, kmods, gpu))
+    small_rigs_publish(torch, engmod, FusionConfig, transforms,
+                       PinholeIntrinsics, gpu)
+
+    # -- 6. mapping on --
     mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu)
 
-    # -- 6. each engine kernel against its twin on the recorded frame --
-    # (after the loops, so that torch.profiler cannot touch them)
-    results = {}
+    # -- 7. each engine kernel against its twin at each call site: the
+    #    recorded link frame, the publish frame (the raw cloud's compaction,
+    #    level 1 + level 2 over it) and the packed frame (one reduction of
+    #    the sorted stream); after the loops, so that torch.profiler cannot
+    #    touch them --
+    results, sites = {}, {}
     for name in ENGINE_KERNELS:
-        kern, twin = wrappers[name]
-        if len(calls.get(name, ())) != EXPECTED_LAUNCHES[name]:
+        if len(calls.get(name, ())) != EXPECTED["link"][name]:
             raise AssertionError(f"{name}: recorded "
                                  f"{len(calls.get(name, ()))} calls")
-        errs, shapes, per_call = [], [], []
-        tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, plain_call_ms=0.0,
-                   bound_ms=0.0)
-        for a, k, _ in calls[name]:
-            got = kern(*a, **k)
-            ref = twin(*a, **k)
-            torch.cuda.synchronize()
-            err = max_abs_err(torch, got, ref)
-            if err != 0.0:
-                raise AssertionError(f"{name}: kernel != twin, max abs "
-                                     f"err {err} (exact required)")
-            errs.append(err)
-            nbytes, ops = work_of(name, a, ref)
-            bound, bound_by = roofline(nbytes, ops)
-            one = dict(ms=device_ms(torch, lambda: kern(*a, **k)),
-                       call_ms=cuda_ms(torch, lambda: kern(*a, **k)),
-                       plain_ms=device_ms(torch, lambda: twin(*a, **k)),
-                       plain_call_ms=cuda_ms(torch, lambda: twin(*a, **k)),
-                       bound_ms=bound)
-            for key in tot:
-                tot[key] += one[key]
-            per_call.append(f"{one['ms']:.4f}/{bound:.4f}")
-            shapes.append("x".join(map(str, a[0].shape)))
-        if name == "flying_pixels":
-            # the halo wider than one pixel, at the full image size
-            pts, mask, fh, fw, _, thr, _, maxd = calls[name][0][0]
-            for rings in (2, 3):
-                wide = (pts[:2], mask[:2], fh, fw, rings, thr, True, maxd)
-                if not torch.equal(kern(*wide), twin(*wide)):
-                    raise AssertionError(f"{name}: kernel != twin with "
-                                         f"{rings} rings")
-        library = None
-        if name == "compact":
-            # one PyTorch call computes the same rows: boolean indexing
-            # (its nonzero syncs the host; device time counts no gaps)
-            words, mask = calls[name][0][0][:2]
-            library = device_ms(torch, lambda: words[mask])
-        results[name] = dict(max_abs_err=max(errs), bound_by=bound_by,
-                             library_ms=library, **tot)
-        print(f"[kernel] {name} on {'+'.join(shapes)} (link frame "
-              f"{RECORD_FRAME}), per frame ({len(calls[name])} call(s), "
-              f"launches_per_frame {per_frame[name]:g}): max_abs_err "
-              f"{max(errs)} | device ms {tot['ms']:.4f} (per call device/"
-              f"bound {', '.join(per_call)}) | call_ms "
-              f"{tot['call_ms']:.4f} | bound_ms {tot['bound_ms']:.4f} "
-              f"({bound_by}, {tot['bound_ms'] / tot['ms']:.2f} of the "
-              f"bound reached) | plain device {tot['plain_ms']:.4f} ms, "
-              f"call {tot['plain_call_ms']:.4f} ms | library_ms "
-              f"{'none' if library is None else f'{library:.4f}'} | {gpu}",
-              flush=True)
+        results[name] = time_site(torch, name, calls[name], wrappers[name],
+                                  f"link frame {RECORD_FRAME}",
+                                  per_frame[name], gpu)
+        sites.setdefault(name, {})["link"] = results[name]
+    for name, site, site_calls, path in (
+            ("compact", "publish raw cloud", pub_calls, "publish"),
+            ("segreduce", "publish level 1 + 2 on the raw cloud",
+             pub_calls, "publish"),
+            ("segreduce", "publish packed, the sorted stream", packed_calls,
+             "publish_packed")):
+        if len(site_calls.get(name, ())) != EXPECTED[path][name]:
+            raise AssertionError(f"{name} at {site}: recorded "
+                                 f"{len(site_calls.get(name, ()))} calls")
+        sites[name][path] = time_site(
+            torch, name, site_calls[name], wrappers[name],
+            f"{site}, frame {RECORD_FRAME}",
+            by_path[path][name] / PUBLISH_FRAMES, gpu)
 
-    # -- 7. kernel 4, the fused front, on the recorded frame --
+    # the publish step of each mode, whole, from its tapped state: device
+    # ms and device activities a step, and CUDA events around one step
+    # (host enqueue included: what the host-bound frame pays)
+    for mode, (e, (state, inp, bits)) in pub_taps.items():
+        def step():
+            return engmod.fusion_step(state, inp, bits, cfg=e.cfg,
+                                      grid=e.grid,
+                                      output_capacity=e.output_capacity)
+        dev_ms, acts = device_profile(torch, step, reps=10, warm=2)
+        print(f"[publish step] {mode}: device ms {dev_ms:.3f} a step, "
+              f"{acts:g} device activities a step, call_ms "
+              f"{cuda_ms(torch, step, reps=10, warm=2):.3f} (CUDA events "
+              f"around one step, host enqueue included) | {gpu}",
+              flush=True)
+    del pub_taps
+
+    # -- 8. kernel 4, the fused front, on the recorded frame --
     depth_masked, (k_intr, k_tfw, k_tfc, scale), fargs = fused_inputs(
         torch, calls, cfg, grid)
     depth_m, cap = fargs[0], fargs[7]
@@ -995,13 +1346,30 @@ def main():
           f"{launches['fused_unproject_rle']} | {gpu}", flush=True)
     del calls, got, ref
 
+    # the link run's numbers at the top level (launches: its counts), and
+    # per path the launches a frame and, where timed, the call site's
+    steps = {"link": LINK_FRAMES, "raw": RAW_FRAMES,
+             "publish": PUBLISH_FRAMES, "publish_sync": PUBLISH_FRAMES,
+             "publish_packed": PUBLISH_FRAMES, "publish_exact": 2,
+             "publish_occupied": 2, "hetero": HETERO_FRAMES,
+             "hetero_sync": HETERO_FRAMES}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     launches_per_frame=per_frame[name],
                     **{k: results[name][k] for k in (
                         "max_abs_err", "ms", "call_ms", "plain_ms",
-                        "bound_ms", "bound_by", "library_ms")})
+                        "bound_ms", "bound_by", "library_ms")},
+                    launches_per_frame_by_path={
+                        path: by_path[path][name] / n
+                        for path, n in steps.items()},
+                    sites={path: {k: v for k, v in r.items()
+                                  if k != "plain_call_ms"}
+                           for path, r in sites.get(name, {}).items()})
                for name in KERNELS]
+    for path, n in steps.items():
+        for name in ENGINE_KERNELS:
+            if EXPECTED[path][name] and by_path[path][name] <= 0:
+                raise AssertionError(f"{path}: {name} was not launched")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched: {kernels}")
     print(json.dumps({"kernels": kernels}))

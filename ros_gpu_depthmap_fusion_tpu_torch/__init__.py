@@ -15,14 +15,17 @@ Importing the package sets ``torch.backends.cuda.matmul.allow_tf32`` and
 arguments assume true float32 arithmetic.
 
 What is ported: the fused per-frame step through
-``FusionEngine.add_depthmap`` / ``add_point_sequence`` / ``process`` for a
-homogeneous rig with the split-domain RLE average voxelize, on the raw or
-the coded depth link (``"dpcm"``, ``"dpcm_temporal"`` with p4 P-frames;
-encoders in the native host library), with ``pipeline_depth`` 0 or 1; the
-mapping (``MappingPipeline``: device or native host segmentation, object
+``FusionEngine.add_depthmap`` / ``add_point_sequence`` / ``process`` at
+every single-device configuration of the JAX engine: ``FusionConfig()``'s
+defaults (the raw cloud emitted), the split-domain step, the voxel modes
+"rle", "packed", "exact" and occupied cells, no voxel filter, the radius
+filter, heterogeneous rigs, on the raw or the coded depth link
+(``"dpcm"``, ``"dpcm_temporal"`` with p4 P-frames; encoders in the native
+host library), with ``pipeline_depth`` 0 or 1; the mapping
+(``MappingPipeline``: device or native host segmentation, object
 assembly, tracking; ``AsyncMappingWorker``); and the streaming component
-(``FusionComponent``). Configurations outside it raise
-``NotImplementedError`` naming the field.
+(``FusionComponent``). What the JAX package refuses raises ``ValueError``
+naming the field.
 """
 
 import torch

@@ -2,9 +2,19 @@
 ``core/config.py``, so the port never imports jax).
 
 The fields, names and defaults are the JAX package's, one for one, so one
-keyword set configures both engines. The port's engine implements a subset
-of them (see :func:`pipeline.engine.check_supported`) and raises
-``NotImplementedError`` for the rest.
+keyword set configures both engines. The port's engine runs every
+single-device configuration the JAX engine runs, and refuses with
+``ValueError`` what the JAX package refuses
+(:func:`pipeline.engine.check_supported`).
+
+``voxel_mean_mode="auto"`` follows one rule on every device
+(:func:`pipeline.engine.resolve_mean_mode`): "rle" on a grid of fewer than
+2^24 cells, else "packed" — the JAX package's rule on a TPU. This is the
+one difference from the JAX package on the CPU, which resolves "auto" to
+"packed" on any grid. The two give bit-equal outputs unless the level-1
+partials overflow their capacity, which ``FrameOutputs.vox_partials_count
+> voxelize_partials_capacity`` shows; ``vox_partials_count`` itself
+differs under "auto" (the run count against 0).
 """
 
 from __future__ import annotations
@@ -62,9 +72,9 @@ class FusionConfig:
     voxel_max: Tuple[float, float, float] = (+1.0, +1.0, +1.0)
     voxel_size: Tuple[float, float, float] = (0.1, 0.1, 0.1)
     voxel_enable_average: bool = True
-    # "auto" | "rle" | "packed" | "exact"; the port runs the split-domain
-    # RLE average (10/10/12-bit cell-relative quantization) for "auto"
-    # and "rle"
+    # "auto" | "rle" | "packed" | "exact" (ops/voxelize.py); "rle" and
+    # "packed" average 10/10/12-bit cell-relative quantized coordinates,
+    # "exact" the float32 coordinates; "auto": see the module docstring
     voxel_mean_mode: str = "auto"
     # cap on level-1 (cell, partial-sum) rows (0 -> max(2^16, N//4));
     # overflowing partials are dropped and reported

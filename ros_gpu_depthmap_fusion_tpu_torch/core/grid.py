@@ -82,6 +82,13 @@ class VoxelGrid:
             [torch.remainder(torch.div(idx, st[i], rounding_mode="floor"),
                              gs[i]) for i in range(3)], dim=-1)
 
+    def cell_index_of_coord(self, grid_coord: torch.Tensor) -> torch.Tensor:
+        """``[..., 3]`` integer grid coord -> int32 linear index
+        (grid_meta.h:79-87)."""
+        st = self.steps
+        gc = grid_coord.to(torch.int32)
+        return gc[..., 0] * st[0] + gc[..., 1] * st[1] + gc[..., 2] * st[2]
+
     def world_coord_of_coord(self, grid_coord: torch.Tensor) -> torch.Tensor:
         """Grid coord -> float32 world coordinate of the cell's lower corner
         (grid_meta.h:94-100: ``grid * cell + lower``)."""

@@ -70,12 +70,13 @@ def compact_multi(arrays, mask: torch.Tensor, capacity: int,
     return tuple(outs), count, true_count
 
 
-def compact(values: torch.Tensor, mask: torch.Tensor, capacity: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable stream compaction of ``values`` rows where ``mask`` is set.
+def compact(values: torch.Tensor, mask: torch.Tensor, capacity: int,
+            plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable stream compaction of ``values`` rows where ``mask`` is set
+    (the twin with ``plain=True``).
 
     Returns (out ``[capacity, ...]`` — rows ``[0, count)`` are the flagged
     rows in order, the rest zero — and count, int32, clamped to capacity).
     """
-    (out,), count, _ = compact_multi((values,), mask, capacity)
+    (out,), count, _ = compact_multi((values,), mask, capacity, plain=plain)
     return out, count

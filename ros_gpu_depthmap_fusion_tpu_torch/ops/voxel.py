@@ -4,7 +4,8 @@
   deterministic scatter of one value).
 - ``decrement_uints`` + ``max_with_uints_times_scalar`` ->
   :func:`update_historic_occupancy`.
-- ``uints_to_chars`` -> :func:`occupancy_to_u8`.
+- ``uints_to_chars`` -> :func:`occupancy_to_u8`; the per-layer views ->
+  :func:`occupancy_layers`.
 - the mapping consumer's payloads -> :func:`occupancy_bitmap` (8 cells a
   byte) and :func:`occupancy_bitmap_sparse` (nonzero 128-bit blocks).
 """
@@ -45,6 +46,13 @@ def update_historic_occupancy(historic: torch.Tensor,
 def occupancy_to_u8(grid: torch.Tensor) -> torch.Tensor:
     """int32 occupancy -> uint8 (clamp-cast)."""
     return torch.clamp(grid, 0, 255).to(torch.uint8)
+
+
+def occupancy_layers(grid_u8: torch.Tensor, grid_size) -> torch.Tensor:
+    """The flat x-fastest grid as ``[Z, Y, X]`` layer images, the
+    reference's per-layer views (gpu_depthmap_fusion.cpp:1829-1838)."""
+    w, h, z = grid_size
+    return grid_u8.reshape(z, h, w)
 
 
 def occupancy_bitmap(grid: torch.Tensor) -> torch.Tensor:

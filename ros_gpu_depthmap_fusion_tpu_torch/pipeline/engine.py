@@ -9,16 +9,25 @@ Per frame, in the reference's order (``processDepthmaps``,
     4. select the aggregation timespan   (cpp:194)
     5. gather + transform the selection  (cpp:199-203)
     6. decode the depth link; unproject  (cpp:226)
-    7. flying-pixel filter               (cpp:234)  kernel 2
-    8. crop                              (cpp:241)
-    9. voxelize (average)                (cpp:259-288)  kernel 1, twice
-    10. occupancy + temporal decay       (cpp:297)
-    11. packed and sparse occupancy bitmaps            kernel 3
+    7. flying-pixel filter               (cpp:234)  kernel 2, once a
+                                                    resolution group
+    8. crop; optional radius filter      (cpp:241)
+    9. compact the raw cloud             (cpp:249)  kernel 3
+    10. voxelize                         (cpp:259-288)  kernels 1, 3
+    11. occupancy + temporal decay       (cpp:297)
+    12. packed and sparse occupancy bitmaps            kernel 3
 
-Steps 8-10 take the split-domain layout of the JAX package's engine
-(``pipeline/engine.py:294-318, :382-392``): the depth raster and the lidar
-selection are never concatenated; they meet at the (cell, partial-sum)
-level inside :func:`ops.voxelize.voxelize_average_rle_domains`.
+Two layouts, as in the JAX package's engine (``pipeline/engine.py:
+272-397``). When only the averaged cloud is wanted at mode "rle" (no raw
+cloud, no radius filter), the split-domain layout: the depth sections and
+the lidar selection are never concatenated; they meet at the (cell,
+partial-sum) level inside :func:`ops.voxelize.voxelize_average_rle_domains`
+(kernel 1 twice), step 9 is skipped and step 11 is a scatter-max at the
+emitted cells. Otherwise the reference's layout: lidar appended after the
+depth sections, the raw cloud compacted when it is emitted, then one of
+the modes "rle", "packed", "exact", the occupied-cell corners, or no
+voxel filter, and the dense decay update. :func:`resolve_mean_mode` states
+how "auto" resolves.
 
 Every tensor of a step lives on the engine's device and the step never
 waits for it: a frame's only host -> device traffic is one packet copy
@@ -41,6 +50,7 @@ import torch
 
 from ros_gpu_depthmap_fusion_tpu_torch.core import timeutil
 from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+from ros_gpu_depthmap_fusion_tpu_torch.core.devconst import const
 from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
 from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (
     MappingPipeline, MappingResult)
@@ -48,15 +58,20 @@ from ros_gpu_depthmap_fusion_tpu_torch.ops.depth_codec import (
     B_BUCKETS, decode_depth, decode_depth_p4, decode_depth_temporal)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels.flying_pixels import (
     filter_flying_pixels, filter_flying_pixels_plain)
-from ros_gpu_depthmap_fusion_tpu_torch.ops.mask_ops import crop_points
+from ros_gpu_depthmap_fusion_tpu_torch.ops.mask_ops import (
+    compact, crop_points)
+from ros_gpu_depthmap_fusion_tpu_torch.ops.radius import (
+    filter_radius_outliers)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.stencil import (
     filter_point_sequence)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.unproject import (
     unproject_depthmaps)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import (
-    occupancy_bitmap, occupancy_bitmap_sparse, occupancy_to_u8)
+    occupancy_bitmap, occupancy_bitmap_sparse, occupancy_to_u8,
+    scatter_occupancy, update_historic_occupancy)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.voxelize import (
-    voxelize_average_rle_domains)
+    RLE_MAX_CELLS, voxelize_average, voxelize_average_packed,
+    voxelize_average_rle, voxelize_average_rle_domains, voxelize_occupied)
 from ros_gpu_depthmap_fusion_tpu_torch.pipeline.packet import (
     HostPacket, PacketLayout, unpack_packet)
 from ros_gpu_depthmap_fusion_tpu_torch.state import rollbuffer as rbmod
@@ -110,14 +125,18 @@ class FrameInputs(NamedTuple):
 class FrameOutputs(NamedTuple):
     fused_points: torch.Tensor   # [out_cap, 4] voxelized world points
     fused_count: torch.Tensor
-    raw_points: torch.Tensor     # [1, 4] stub (raw cloud not emitted)
+    # [n_depth + rollbuffer capacity, 4] compacted world points when the
+    # raw cloud is emitted (emit_raw_points, or no voxel filter), else a
+    # [1, 4] stub
+    raw_points: torch.Tensor
     raw_count: torch.Tensor      # valid depth + lidar points after crop
     occupancy_u8: torch.Tensor   # [num_cells] u8, or a [1] stub
     occupancy_bits: torch.Tensor  # packed 8 cells a byte
     seq_selected_count: torch.Tensor
-    # max over raster domains of the true level-1 run count scaled to the
-    # full partials capacity; above cfg.voxelize_partials_capacity means
-    # partial rows were dropped this frame
+    # mode "rle": max over raster domains of the true level-1 run count
+    # scaled to the full partials capacity; above
+    # cfg.voxelize_partials_capacity means partial rows were dropped this
+    # frame. 0 in the other modes
     vox_partials_count: torch.Tensor
     # nonzero 128-bit blocks of occupancy_bits (index, 4 words) + clamped
     # and true count; [1]-stubs when cfg.occupancy_sparse_capacity == 0
@@ -127,30 +146,39 @@ class FrameOutputs(NamedTuple):
     occupancy_sparse_true: torch.Tensor
 
 
+def resolve_mean_mode(cfg: FusionConfig, grid: VoxelGrid) -> str:
+    """The averaging mode a step runs: ``cfg.voxel_mean_mode``, with
+    ``"auto"`` resolved by one rule on every device: ``"rle"`` on a grid
+    of fewer than 2^24 cells, else ``"packed"`` (the JAX package's rule on
+    a TPU; see :class:`core.config.FusionConfig`)."""
+    mode = cfg.voxel_mean_mode
+    if mode == "auto":
+        return "rle" if grid.num_cells < RLE_MAX_CELLS else "packed"
+    return mode
+
+
 def check_supported(cfg: FusionConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration outside the
-    port's current slice (homogeneous rig; raw or coded depth link;
-    split-domain RLE average voxelize), naming the config field."""
-    if cfg.is_heterogeneous:
-        raise NotImplementedError(
-            "stream_shapes: heterogeneous rigs are not ported yet")
+    """Raise ``ValueError``, naming the config field, for a configuration
+    the JAX package refuses too: ``dpcm_temporal`` or p4 P-frames on a
+    heterogeneous rig (no per-group P-frame state), an unknown depth-link
+    codec or voxel mean mode."""
     if cfg.depth_link_codec not in ("none", "dpcm", "dpcm_temporal"):
-        raise NotImplementedError(
+        raise ValueError(
             f"depth_link_codec={cfg.depth_link_codec!r}: the link is "
             "'none', 'dpcm' or 'dpcm_temporal'")
-    for field, bad in (("emit_raw_points", cfg.emit_raw_points),
-                       ("enable_voxel_filter", not cfg.enable_voxel_filter),
-                       ("voxel_enable_average",
-                        not cfg.voxel_enable_average),
-                       ("enable_radius_filter", cfg.enable_radius_filter),
-                       ("voxel_mean_mode",
-                        cfg.voxel_mean_mode not in ("auto", "rle"))):
-        if bad:
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r}: only the split-domain "
-                "RLE average voxelize is ported (emit_raw_points=False, "
-                "voxel filter and averaging on, no radius filter, "
-                "voxel_mean_mode 'auto' or 'rle')")
+    if cfg.voxel_mean_mode not in ("auto", "rle", "packed", "exact"):
+        raise ValueError(
+            f"voxel_mean_mode={cfg.voxel_mean_mode!r}: 'auto', 'rle', "
+            "'packed' or 'exact'")
+    if cfg.is_heterogeneous:
+        if cfg.depth_link_codec == "dpcm_temporal":
+            raise ValueError(
+                "depth_link_codec='dpcm_temporal' is not supported with "
+                "heterogeneous stream_shapes (no per-group P-frame state)")
+        if cfg.depth_codec_p4_budget:
+            raise ValueError(
+                f"depth_codec_p4_budget={cfg.depth_codec_p4_budget}: p4 "
+                "P-frames need a homogeneous rig (stream_shapes)")
 
 
 def initial_state(cfg: FusionConfig, grid: VoxelGrid, device) -> EngineState:
@@ -236,7 +264,9 @@ def fusion_step(state: EngineState,
     """One frame step; returns ``(new_state, FrameOutputs)``.
 
     ``depth_bits`` names the depth payload of ``inp.depth`` (see
-    :func:`decode_link`).
+    :func:`decode_link`); on a heterogeneous rig ``inp.depth`` is a tuple
+    of per-group payloads and ``depth_bits`` a tuple of per-group ``None``
+    (raw) or ``B > 0`` (an I-frame).
 
     ``plain=True`` runs the plain PyTorch twins of the three kernels even
     on CUDA tensors (the on-card reference the kernels are checked
@@ -244,7 +274,6 @@ def fusion_step(state: EngineState,
     CUDA tensors and its twin for CPU tensors.
     """
     check_supported(cfg)
-    h, w = cfg.depth_height, cfg.depth_width
     n_depth = cfg.depthmaps_total_elements
     sel_cap = cfg.rollbuffer_point_capacity
     dev = state.historic_occupancy.device
@@ -268,51 +297,138 @@ def fusion_step(state: EngineState,
     seq_world, seq_crop, seq_valid, _ = rbmod.gather_selection(
         rb, sel, inp.tf_world_move, inp.tf_crop_move, sel_cap)
 
-    # -- 6. decode the link, unproject; 7. flying-pixel filter --
-    depth, prev_depth_q = decode_link(state, inp.depth, depth_bits, cfg)
-    scale = (cfg.resolved_depth_scales if cfg.depth_scales is not None
-             else cfg.depth_scale)
-    pts_cam, pts_world, pts_crop, dmask = unproject_depthmaps(
-        depth, inp.intrinsics, inp.tf_world, inp.tf_crop, scale)
-    if cfg.enable_flyingpixels_filter:
-        fp = filter_flying_pixels_plain if plain else filter_flying_pixels
-        dmask = fp(pts_cam, dmask, h, w, cfg.flyingpixels_filter_size,
-                   inp.fp_threshold, cfg.flyingpixels_filter_enable_rot45,
-                   inp.fp_max_distance)
+    # -- 6. decode the link, unproject; 7. flying-pixel filter: per
+    #    resolution group (one on a homogeneous rig), each group's world,
+    #    crop and mask sections in group order --
+    fp = filter_flying_pixels_plain if plain else filter_flying_pixels
+    prev_depth_q = state.prev_depth_q
+    g_world, g_crop, g_mask = [], [], []
+    groups = cfg.stream_groups
+    if len(groups) > 1:
+        bits_t = depth_bits if depth_bits is not None else (None,) * len(
+            groups)
+        scales = cfg.resolved_depth_scales
+        fronts = []
+        for gi, (ix, gh, gw) in enumerate(groups):
+            depth = inp.depth[gi]
+            if bits_t[gi] is not None:
+                depth = decode_depth(depth, gh, gw, bits_t[gi],
+                                     cfg.depth_codec_quant_shift)
+            cams = const(ix, dev, torch.int64)
+            fronts.append((depth, inp.intrinsics[cams], inp.tf_world[cams],
+                           inp.tf_crop[cams], tuple(scales[i] for i in ix),
+                           gh, gw))
+    else:
+        depth, prev_depth_q = decode_link(state, inp.depth, depth_bits, cfg)
+        scale = (cfg.resolved_depth_scales if cfg.depth_scales is not None
+                 else cfg.depth_scale)
+        fronts = [(depth, inp.intrinsics, inp.tf_world, inp.tf_crop, scale,
+                   cfg.depth_height, cfg.depth_width)]
+    for depth, intr, tf_world, tf_crop, scale, gh, gw in fronts:
+        pts_cam, pts_world, pts_crop, dmask = unproject_depthmaps(
+            depth, intr, tf_world, tf_crop, scale)
+        if cfg.enable_flyingpixels_filter:
+            dmask = fp(pts_cam, dmask, gh, gw, cfg.flyingpixels_filter_size,
+                       inp.fp_threshold, cfg.flyingpixels_filter_enable_rot45,
+                       inp.fp_max_distance)
+        ng = depth.shape[0] * gh * gw
+        g_world.append(pts_world.reshape(ng, 4))
+        g_crop.append(pts_crop.reshape(ng, 4))
+        g_mask.append(dmask.reshape(ng))
 
-    # -- 8. crop, both domains --
-    pw = pts_world.reshape(n_depth, 4)
-    m_depth = crop_points(pts_crop.reshape(n_depth, 4),
-                          dmask.reshape(n_depth), cfg.crop_min, cfg.crop_max)
-    seq_valid = crop_points(seq_crop, seq_valid, cfg.crop_min, cfg.crop_max)
-    raw_count = torch.clamp_max(
-        m_depth.sum(dtype=torch.int32) + seq_valid.sum(dtype=torch.int32),
-        n_depth + sel_cap)
-
-    # -- 9. voxelize: raster domain + lidar rows meet at the partials --
-    fused_points, fused_count, (cells, cells_live), vox_partials = (
-        voxelize_average_rle_domains(
-            [(pw, grid.cell_index_clamped(pw[:, :3]), m_depth)], grid,
-            output_capacity,
-            partials_capacity=cfg.voxelize_partials_capacity,
-            extra_points=seq_world,
-            extra_cell_indices=grid.cell_index_clamped(seq_world[:, :3]),
-            extra_mask=seq_valid, plain=plain))
-
-    # -- 10. occupancy + decay: the fresh grid is 0/1 at the emitted
-    #        cells, so max(aged, fresh * lifetime) is a scatter-max of
-    #        `lifetime` at those cells into the aged grid --
+    # -- 8-10. the split-domain layout (JAX pipeline/engine.py:288-318):
+    #    the depth sections and the lidar selection meet at the partials,
+    #    when only the averaged cloud is wanted at mode "rle" --
+    mode = resolve_mean_mode(cfg, grid)
+    emit_raw = cfg.emit_raw_points or not cfg.enable_voxel_filter
+    split = (cfg.enable_voxel_filter and cfg.voxel_enable_average
+             and mode == "rle" and not emit_raw
+             and not cfg.enable_radius_filter)
+    total_cap = n_depth + sel_cap
     num_cells = grid.num_cells
-    aged = torch.cat([torch.clamp_min(state.historic_occupancy - 1, 0),
-                      torch.zeros((1,), dtype=torch.int32, device=dev)])
-    target = torch.where(cells_live, cells, num_cells).long()
-    historic = aged.scatter_reduce_(
-        0, target, torch.full_like(cells, cfg.voxel_occupancy_lifetime),
-        reduce="amax")[:num_cells]
+    raw_points = torch.zeros((1, 4), dtype=torch.float32, device=dev)
+    vox_partials = torch.zeros((), dtype=torch.int32, device=dev)
+    if split:
+        domains, raw_count = [], None
+        for pw, pc, m in zip(g_world, g_crop, g_mask):
+            m = crop_points(pc, m, cfg.crop_min, cfg.crop_max)
+            n_m = m.sum(dtype=torch.int32)
+            raw_count = n_m if raw_count is None else raw_count + n_m
+            domains.append((pw, grid.cell_index_clamped(pw[:, :3]), m))
+        seq_valid = crop_points(seq_crop, seq_valid, cfg.crop_min,
+                                cfg.crop_max)
+        raw_count = torch.clamp_max(
+            raw_count + seq_valid.sum(dtype=torch.int32), total_cap)
+        fused_points, fused_count, (cells, cells_live), vox_partials = (
+            voxelize_average_rle_domains(
+                domains, grid, output_capacity,
+                partials_capacity=cfg.voxelize_partials_capacity,
+                extra_points=seq_world,
+                extra_cell_indices=grid.cell_index_clamped(seq_world[:, :3]),
+                extra_mask=seq_valid, plain=plain))
+        # occupancy + decay: the fresh grid is 0/1 at the emitted cells, so
+        # max(aged, fresh * lifetime) is a scatter-max of `lifetime` at
+        # those cells into the aged grid
+        aged = torch.cat([torch.clamp_min(state.historic_occupancy - 1, 0),
+                          torch.zeros((1,), dtype=torch.int32, device=dev)])
+        target = torch.where(cells_live, cells, num_cells).long()
+        historic = aged.scatter_reduce_(
+            0, target, torch.full_like(cells, cfg.voxel_occupancy_lifetime),
+            reduce="amax")[:num_cells]
+    else:
+        # -- 8. depth sections then the lidar selection, concatenated (the
+        #    reference's layout), cropped; 8b. the radius filter --
+        all_world = torch.cat(g_world + [seq_world])
+        all_mask = crop_points(torch.cat(g_crop + [seq_crop]),
+                               torch.cat(g_mask + [seq_valid]),
+                               cfg.crop_min, cfg.crop_max)
+        if cfg.enable_radius_filter:
+            all_mask = filter_radius_outliers(
+                all_world, all_mask, cfg.radius_min, cfg.radius_max,
+                cfg.radius_filter_radius)
+        # -- 9. the raw cloud, compacted when it is emitted (or is the
+        #    output); voxelize reads the masked rows otherwise --
+        if emit_raw:
+            raw_points, raw_count = compact(all_world, all_mask, total_cap,
+                                            plain=plain)
+            vox_points = raw_points
+            live = torch.arange(total_cap, dtype=torch.int32,
+                                device=dev) < raw_count
+        else:
+            raw_count = torch.clamp_max(all_mask.sum(dtype=torch.int32),
+                                        total_cap)
+            vox_points, live = all_world, all_mask
+        # -- 10. cell ids, voxelize --
+        cell_ids = grid.cell_index_clamped(vox_points[:, :3])
+        fresh = None
+        if not cfg.enable_voxel_filter:
+            fused_points, fused_count = raw_points, raw_count
+        elif not cfg.voxel_enable_average:
+            fresh = scatter_occupancy(cell_ids, live, num_cells)
+            fused_points, fused_count = voxelize_occupied(
+                fresh, grid, output_capacity, plain=plain)
+        elif mode == "rle":
+            fused_points, fused_count, fresh, vox_partials = (
+                voxelize_average_rle(
+                    vox_points, cell_ids, live, grid, output_capacity,
+                    return_occupancy=True,
+                    partials_capacity=cfg.voxelize_partials_capacity,
+                    return_partials_count=True, plain=plain))
+        else:
+            vox = (voxelize_average_packed if mode == "packed"
+                   else voxelize_average)
+            fused_points, fused_count, fresh = vox(
+                vox_points, cell_ids, live, grid, output_capacity,
+                return_occupancy=True, plain=plain)
+        # -- 11. occupancy + temporal decay --
+        if fresh is None:
+            fresh = scatter_occupancy(cell_ids, live, num_cells)
+        historic = update_historic_occupancy(
+            state.historic_occupancy, fresh, cfg.voxel_occupancy_lifetime)
     occupancy_u8 = (occupancy_to_u8(historic) if cfg.emit_occupancy_u8
                     else torch.zeros((1,), dtype=torch.uint8, device=dev))
 
-    # -- 11. sparse occupancy blocks for the mapping consumer --
+    # -- sparse occupancy blocks for the mapping consumer --
     if cfg.occupancy_sparse_capacity > 0:
         si, sw, sc, st = occupancy_bitmap_sparse(
             historic, cfg.occupancy_sparse_capacity, plain=plain)
@@ -326,8 +442,8 @@ def fusion_step(state: EngineState,
                             prev_depth_q=prev_depth_q)
     return new_state, FrameOutputs(
         fused_points=fused_points, fused_count=fused_count,
-        raw_points=torch.zeros((1, 4), dtype=torch.float32, device=dev),
-        raw_count=raw_count, occupancy_u8=occupancy_u8,
+        raw_points=raw_points, raw_count=raw_count,
+        occupancy_u8=occupancy_u8,
         occupancy_bits=occupancy_bitmap(historic),
         seq_selected_count=sel.point_count,
         vox_partials_count=vox_partials,
@@ -335,6 +451,14 @@ def fusion_step(state: EngineState,
         occupancy_sparse_count=sc, occupancy_sparse_true=st)
 
 
+def _write_raw_pairs(tail: np.ndarray, depth: np.ndarray) -> None:
+    """Raw u16 depth as little-endian pairs into the packet's u32 ``tail``
+    (an odd last pixel in the low half of a last word)."""
+    flat = depth.reshape(-1)
+    n_pairs = flat.size // 2
+    tail[:n_pairs] = flat[: n_pairs * 2].view(np.uint32)
+    if flat.size % 2:
+        tail[n_pairs] = np.uint32(flat[-1])
 
 
 def _quantize_into(depth: np.ndarray, quant_shift: int,
@@ -362,7 +486,10 @@ class FusionEngine:
 
     ``device`` has no default: ``"cuda"`` runs the hand-written kernels,
     ``"cpu"`` their plain twins. A configured depth-link codec needs the
-    native host library; the engine raises at construction without it.
+    native host library; the engine raises at construction without it. A
+    heterogeneous rig (``cfg.stream_shapes``) stages and encodes each
+    resolution group on its own (raw or ``"dpcm"``, each group at its own
+    width).
 
     ``pipeline_depth=1`` overlaps frame k's encode and host -> device copy
     (a worker thread, and a side CUDA stream for the copy) with frame k-1's
@@ -407,12 +534,27 @@ class FusionEngine:
                          HostPacket(self.layout, cuda))
         self._copied = [None, None]
         self._pkt_flip = 0
-        # with a codec the raw depth is staged into these (double-buffered
-        # like the packets): the encoder's input
+        # with a codec, or on a heterogeneous rig, the raw depth is staged
+        # into these (double-buffered like the packets): the encoder's
+        # input; per resolution group on a heterogeneous rig, with slot ->
+        # (group, position)
         c, h, w = cfg.num_depth_streams, cfg.depth_height, cfg.depth_width
-        self._depth_hosts = ((np.zeros((c, h, w), np.uint16),
-                              np.zeros((c, h, w), np.uint16))
-                             if self._codec else (None, None))
+        self._hetero = cfg.is_heterogeneous
+        self._slot_map = {}
+        if self._hetero:
+            for gi, (ix, _, _) in enumerate(cfg.stream_groups):
+                for pos, slot in enumerate(ix):
+                    self._slot_map[slot] = (gi, pos)
+            self._depth_hosts = tuple(
+                [np.zeros((len(ix), gh, gw), np.uint16)
+                 for ix, gh, gw in cfg.stream_groups] for _ in range(2))
+        elif self._codec:
+            self._depth_hosts = (np.zeros((c, h, w), np.uint16),
+                                 np.zeros((c, h, w), np.uint16))
+        else:
+            self._depth_hosts = (None, None)
+        # per-group spatial width guesses (heterogeneous rigs)
+        self._last_bits_g = [-1] * len(cfg.stream_groups)
         # encoder state (touched only by the thread that encodes)
         self._last_bits = -1        # spatial width guess
         self._last_p_bits = -1      # classic P-frame width guess
@@ -465,6 +607,9 @@ class FusionEngine:
         self._seq_fill = 0
 
     def _depth_slot(self, slot: int) -> np.ndarray:
+        if self._hetero:
+            gi, pos = self._slot_map[slot]
+            return self._depth_host[gi][pos]
         return (self._depth_host[slot] if self._codec
                 else self._pkt.depth[slot])
 
@@ -571,6 +716,8 @@ class FusionEngine:
         P-frame first, then a classic P-frame, then the spatial I-frame
         when an encoder declines; raw depth when every width overflows
         the exception budget. Returns ``(packet words, depth_bits)``."""
+        if self._hetero:
+            return self._encode_hetero(pkt, depth_host, scalars)
         cfg = self.cfg
         depth_bits, exc_count = None, 0
         pkt_out = dict(words=pkt.tail, row_first=pkt.row_first,
@@ -644,14 +791,47 @@ class FusionEngine:
             exc_count = int(enc["exc_count"])
             self._last_bits = depth_bits
         if depth_bits is None and self._codec:
-            # raw u16 pairs in the tail
-            flat = depth_host.reshape(-1)
-            n_pairs = flat.size // 2
-            pkt.tail[:n_pairs] = flat[: n_pairs * 2].view(np.uint32)
-            if flat.size % 2:
-                pkt.tail[n_pairs] = np.uint32(flat[-1])
+            _write_raw_pairs(pkt.tail, depth_host)
         pkt.set_scalars(exc_count, *scalars)
         return pkt.view(depth_bits), depth_bits
+
+    def _encode_hetero(self, pkt: HostPacket, depth_hosts, scalars):
+        """A heterogeneous rig's encode (JAX ``pipeline/engine.py:780-823``):
+        each resolution group codes its own ``"dpcm"`` segment at its own
+        width (raw when the codec is off or declines), into its tail
+        segment, row_first slice and exception share; its exception count
+        goes to the packet's group section. ``depth_bits`` is the tuple of
+        per-group widths."""
+        cfg, lo = self.cfg, self.layout
+        bits = []
+        tail_off = exc_off = row_off = 0
+        for gi, (cg, gh, _) in enumerate(lo.groups):
+            d_g, cap_g = depth_hosts[gi], lo.group_exc_caps[gi]
+            exc_count_g, bits_g = 0, None
+            if cfg.depth_link_codec == "dpcm":
+                encoded = native.depth_encode(
+                    d_g, cap_g, allowed_bits=B_BUCKETS,
+                    out=dict(words=pkt.tail[tail_off:],
+                             row_first=pkt.row_first[row_off:
+                                                     row_off + cg * gh],
+                             exc_idx=pkt.exc_idx[exc_off:exc_off + cap_g],
+                             exc_zz=pkt.exc_zz[exc_off:exc_off + cap_g]),
+                    guess_bits=self._last_bits_g[gi],
+                    quant_shift=cfg.depth_codec_quant_shift)
+                if encoded is not None:
+                    enc, bits_g = encoded
+                    exc_count_g = int(enc["exc_count"])
+                    self._last_bits_g[gi] = bits_g
+            if bits_g is None:
+                _write_raw_pairs(pkt.tail[tail_off:], d_g)
+            pkt.buf[lo.off_gmeta + gi] = np.uint32(exc_count_g)
+            bits.append(bits_g)
+            tail_off += lo.group_tail_words(gi, bits_g)
+            exc_off += cap_g
+            row_off += cg * gh
+        bits = tuple(bits)
+        pkt.set_scalars(0, *scalars)
+        return pkt.view(bits), bits
 
     def _encode_and_put(self, pkt: HostPacket, depth_host, scalars,
                         flip: int):

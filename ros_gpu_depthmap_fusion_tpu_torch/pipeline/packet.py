@@ -26,10 +26,16 @@ offsets static per config)::
                        (bits None), the I- or P-frame's rows*wpr(B) words,
                        or p4's flag words then literal words
 
-The port unpacks every payload of a homogeneous rig: raw depth, the
-codec's I-, classic P- and p4 P-frames, and f32, u16-quantized or
-delta-coded lidar staging. Heterogeneous rigs have their layout computed
-here (so offsets agree) but unpacking them raises ``NotImplementedError``.
+A heterogeneous rig (streams of several resolutions) lays its depth out
+per resolution group, in group order: a G-word section at ``off_gmeta``
+holds each group's exception count, each group has its slice of
+row_first, its share ``group_exc_caps[g]`` of the exception sections (at
+fixed offsets), and its own tail segment, raw or coded at its own width.
+
+The port unpacks every payload: raw depth, the codec's I-, classic P- and
+p4 P-frames (p4 on a homogeneous rig only), a heterogeneous rig's
+per-group raw or I-frame segments, and f32, u16-quantized or delta-coded
+lidar staging.
 """
 
 from __future__ import annotations
@@ -267,10 +273,48 @@ def _u16(b, off, n_words):
     return b[off:off + n_words].view(torch.int16).to(torch.int32) & 0xFFFF
 
 
+def _unpack_groups(b, lo: PacketLayout, bits):
+    """A heterogeneous rig's depth payload: per resolution group, raw
+    ``[C_g, H_g, W_g]`` int32 u16 values (``bits[g]`` None) or an
+    :class:`EncodedDepth` I-frame at width ``bits[g]``."""
+    if bits is None:
+        bits = (None,) * len(lo.groups)
+    row_first = _u16(b, lo.off_row_first, (lo.rows + 1) // 2)[: lo.rows]
+    depth = []
+    row_off, exc_off, tail_off = 0, 0, lo.off_tail
+    for gi, (cg, gh, gw) in enumerate(lo.groups):
+        rows_g, cap_g = cg * gh, lo.group_exc_caps[gi]
+        tw = lo.group_tail_words(gi, bits[gi])
+        if bits[gi] is None:
+            depth.append(_u16(b, tail_off, tw)[: rows_g * gw]
+                         .reshape(cg, gh, gw))
+        else:
+            wpr = words_per_row(gw, abs(bits[gi]))
+            depth.append(EncodedDepth(
+                words=b[tail_off:tail_off + rows_g * wpr].reshape(
+                    cg, gh, wpr),
+                row_first=row_first[row_off:row_off + rows_g].reshape(
+                    cg, gh),
+                exc_idx=b[lo.off_exc_idx + exc_off:
+                          lo.off_exc_idx + exc_off + cap_g],
+                exc_zz=b[lo.off_exc_zz + exc_off:
+                         lo.off_exc_zz + exc_off + cap_g],
+                exc_count=b[lo.off_gmeta + gi]))
+        # the encoder writes group g's exceptions at sum(caps[:g]) whether
+        # or not the other groups were coded
+        row_off += rows_g
+        exc_off += cap_g
+        tail_off += tw
+    return tuple(depth)
+
+
 def _unpack_depth(b, lo: PacketLayout, bits):
     """The frame's depth payload: raw ``[C, H, W]`` int32 u16 values
     (``bits`` None), an :class:`EncodedDepthP4` (``"p4"``) or an
-    :class:`EncodedDepth` (``bits`` > 0 I-frame, < 0 classic P-frame)."""
+    :class:`EncodedDepth` (``bits`` > 0 I-frame, < 0 classic P-frame); a
+    tuple of per-group payloads on a heterogeneous rig."""
+    if lo.groups is not None:
+        return _unpack_groups(b, lo, bits)
     if bits is None:
         return _u16(b, lo.off_tail, lo.tail_words(None))[: lo.rows * lo.w] \
             .reshape(lo.c, lo.h, lo.w)
@@ -335,15 +379,13 @@ def unpack_packet(packet: torch.Tensor, layout: PacketLayout, bits=None):
     :class:`pipeline.engine.FrameInputs` (slices, bit views and small
     integer ops; no host sync). ``bits`` names the depth payload as the
     engine's step does: ``None`` raw, ``"p4"``, ``B > 0`` an I-frame at
-    width ``B``, ``-B`` a classic P-frame.
+    width ``B``, ``-B`` a classic P-frame; on a heterogeneous rig a tuple
+    of per-group ``None`` or ``B``.
     """
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
         FrameInputs, SequenceBatch)
     lo = layout
     b = packet
-    if lo.groups is not None:
-        raise NotImplementedError(
-            "stream_shapes: heterogeneous rigs are not ported yet")
     hdr = b[1:7]
     fhdr = _f32(b, 7, 3, (3,))
     depth = _unpack_depth(b, lo, bits)

@@ -78,6 +78,7 @@ def main():
             ("compact", mask_ops, "compact_rows"),
             ("unproject", engmod, "unproject_depthmaps")]
     _, _, _, _, calls = cs.run_engine(torch, eng, scene, intr, 8, kmods,
+                                      cs.EXPECTED["link"],
                                       record=(cs.RECORD_FRAME, mods))
     out = dict(gpu=cs.gpu_line(), label=args.label,
                root=os.path.abspath(args.root), kernels={})

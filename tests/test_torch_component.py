@@ -6,8 +6,8 @@ XLA:CPU contracts multiply-adds, see ``tests/test_torch_engine.py``); its
 mapping runs as the JAX package runs it. Frame outputs, the
 ``on_points`` payloads and the ``MappingResult``s of ``on_mapping`` are
 bit-equal. The component configurations are those of
-``tests/test_component_io.py`` with ``emit_raw_points=False`` (the port's
-engine raises on the raw-points branch, which is not ported yet).
+``tests/test_component_io.py`` as written (``emit_raw_points`` and the
+voxel mode at their defaults, so the raw cloud is compared too).
 """
 
 import jax
@@ -33,7 +33,7 @@ from test_torch_engine import (  # noqa: E402
     EXACT, assert_outputs_equal, frames, small_kw, stage)
 from test_torch_cuda import assert_same  # noqa: E402
 
-OUTPUTS = EXACT + ("occupancy_u8",)
+OUTPUTS = EXACT + ("occupancy_u8", "raw_points")
 
 
 @pytest.fixture
@@ -100,8 +100,7 @@ def test_set_runtime_filters_reach_the_packet():
 GRID6 = dict(crop_min=(-6, -6, -6), crop_max=(6, 6, 6),
              voxel_min=(-6, -6, -6), voxel_max=(6, 6, 6),
              voxel_size=(0.5, 0.5, 0.5), rollbuffer_point_capacity=64,
-             rollbuffer_seq_capacity=8, max_points_per_sequence=32,
-             emit_raw_points=False)
+             rollbuffer_seq_capacity=8, max_points_per_sequence=32)
 
 
 def _op_by_op(comp):

@@ -3,8 +3,10 @@ at edge-case shapes (empty and ragged tiles, sentinels, forced breaks,
 capacity overflow, every column count, several rings, images that cross,
 fill or are smaller than the flying-pixel kernel's tiles; for the fused
 front, widths below, at and above 128, clamped cells, points outside the
-crop and runs across many tiles), small engines card == CPU on the raw
-and the coded link, and the
+crop and runs across many tiles; compact at the raw cloud's shape and
+segreduce on a sorted full stream), small engines card == CPU on the raw
+and the coded link, in every mode of the non-split step and on
+heterogeneous rigs, and the
 mapping on the card == CPU (device segmentation up to ``bench.py``'s
 400x400x21 grid, the sparse mapping cycle, the component with mapping
 on). They need an NVIDIA GPU and nvcc and skip elsewhere; on a GPU
@@ -629,3 +631,146 @@ def test_component_with_mapping_on_card_equals_cpu(dev):
     for k, (a, b) in enumerate(zip(hm, cm)):
         assert_same(a, b, f"on_mapping[{k}]")
     assert hm[-1].num_merged >= 2
+
+
+# -- the non-split step, every mode, and heterogeneous rigs ---------------
+
+def _publish_rig(**kw):
+    """A small rig at ``FusionConfig()``'s defaults (raw cloud emitted,
+    ``voxel_mean_mode="auto"``, dense occupancy), with lidar."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+    base = dict(
+        num_depth_streams=2, depth_height=24, depth_width=32,
+        num_point_sequences=1, crop_min=(-5, -5, -5), crop_max=(5, 5, 5),
+        voxel_min=(-5, -5, -5), voxel_max=(5, 5, 5),
+        voxel_size=(0.5, 0.5, 0.5), rollbuffer_point_capacity=256,
+        rollbuffer_seq_capacity=16, max_points_per_sequence=64,
+        voxel_occupancy_lifetime=3, depth_link_codec="none")
+    base.update(kw)
+    return FusionConfig(**base)
+
+
+@pytest.mark.parametrize("case", [
+    "auto", "rle", "packed", "exact", "auto_no_raw", "packed_no_raw",
+    "occupied", "no_voxel_filter", "radius", "sparse_exact", "hetero",
+    "hetero_dpcm", "hetero_dpcm_pipelined"])
+def test_publish_engine_on_card_equals_cpu(dev, case):
+    """Five frames of a small rig in each mode and branch of the non-split
+    step, and on a heterogeneous rig (raw and ``"dpcm"``, synchronous and
+    pipelined): every output equal on the card and on the CPU."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        FusionEngine)
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+    kw = {"auto": {}, "rle": dict(voxel_mean_mode="rle"),
+          "packed": dict(voxel_mean_mode="packed"),
+          "exact": dict(voxel_mean_mode="exact"),
+          "auto_no_raw": dict(emit_raw_points=False),
+          "packed_no_raw": dict(emit_raw_points=False,
+                                voxel_mean_mode="packed"),
+          "occupied": dict(voxel_enable_average=False),
+          "no_voxel_filter": dict(enable_voxel_filter=False),
+          "radius": dict(enable_radius_filter=True,
+                         radius_filter_radius=0.06,
+                         radius_min=(-2, -2, 0), radius_max=(2, 2, 4)),
+          "sparse_exact": dict(voxel_mean_mode="exact",
+                               occupancy_sparse_capacity=64)}.get(case, {})
+    hetero = case.startswith("hetero")
+    if hetero:
+        kw = dict(stream_shapes=((24, 32), (16, 20)),
+                  depth_link_codec="dpcm" if "dpcm" in case else "none")
+        if "dpcm" in case and not native.available():
+            pytest.skip("native library not built")
+    cfg = _publish_rig(**kw)
+    depth_ = 1 if case.endswith("pipelined") else 0
+    engines = [FusionEngine(cfg, device=dev, pipeline_depth=depth_),
+               FusionEngine(cfg, device="cpu", pipeline_depth=depth_)]
+    eye = np.eye(4, dtype=np.float32)
+    tf1 = eye.copy()
+    tf1[:3, 3] = (0.3, -0.2, 0.1)
+    rng = np.random.default_rng(13)
+    u = np.arange(32)[None, :] + np.zeros((24, 1))
+    t = np.linspace(0, np.pi, 200)
+    arc = np.stack([0.8 * np.cos(t), 0.8 * np.sin(t),
+                    1 + 0.1 * np.sin(5 * t)], -1).astype(np.float32)
+    outs = ([], [])
+    for f in range(5):
+        d = (2000 + 40 * u + 6 * rng.standard_normal((2, 24, 32))) \
+            .astype(np.uint16)
+        d[rng.random((2, 24, 32)) < 0.01] = 0
+        for e, o in zip(engines, outs):
+            e.add_depthmap(0, d[0], PinholeIntrinsics.default_for(32, 24),
+                           eye, eye)
+            if hetero:
+                e.add_depthmap(1, d[1, :16, :20],
+                               PinholeIntrinsics.default_for(20, 16), tf1,
+                               tf1)
+            else:
+                e.add_depthmap(1, d[1], PinholeIntrinsics.default_for(32, 24),
+                               tf1, tf1)
+            e.add_point_sequence(arc + np.float32(0.01 * f), sec=1,
+                                 nsec=f * 33000000, tf_move=eye)
+            out = e.process(1.0 + f / 30.0)
+            if out is not None:
+                o.append((out, e.last_frame_bits))
+    for e, o in zip(engines, outs):
+        if depth_:
+            o.append((e.flush(), e.last_frame_bits))
+        e.close()
+    assert len(outs[0]) == len(outs[1]) == 5
+    assert [b for _, b in outs[0]] == [b for _, b in outs[1]]
+    for (a, _), (b, _) in zip(*outs):
+        for k in b._fields:
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+    last = outs[1][-1][0]
+    assert int(last.fused_count) > 0 and int(last.raw_count) > 0
+
+
+# the raw cloud of the bench rig: 8 x 480 x 848 pixels + 98,304 lidar rows
+RAW_CLOUD_ROWS = 8 * 480 * 848 + 98304
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3, 1.0])
+def test_compact_kernel_raw_cloud_shape_equals_twin(dev, p):
+    """Kernel 3 at the raw cloud's shape, ``[N, 4]`` into capacity N: an
+    empty mask, a partial one and all rows."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import compact as m
+    n = RAW_CLOUD_ROWS
+    gen = torch.Generator(device=dev).manual_seed(7)
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 4), generator=gen,
+                          device=dev, dtype=torch.int32)
+    mask = torch.rand(n, generator=gen, device=dev) < p
+    got = m.compact_rows(words, mask, n)
+    ref = m.compact_plain(words, mask, n)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int(got[1]) == int(mask.sum())
+
+
+@pytest.mark.parametrize("p", [0.0, 0.25, 1.0])
+def test_segreduce_kernel_sorted_full_stream_equals_twin(dev, p):
+    """Kernel 1 on a stably sorted full stream (packed mode's call: the
+    raw cloud's cells sorted, sentinels last) into 262,144 rows: no valid
+    row, some, and every row valid."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import segreduce as m
+    n, cells, cap = RAW_CLOUD_ROWS, 3_360_000, 262_144
+    gen = torch.Generator(device=dev).manual_seed(9)
+    # clustered cells: about 40k occupied, a few hundred points each
+    keys = (torch.randint(0, 40_000, (n,), generator=gen, device=dev)
+            * 83).to(torch.int32)
+    keys = torch.where(torch.rand(n, generator=gen, device=dev) < p, keys,
+                       cells)
+    keys = torch.sort(keys, stable=True)[0].contiguous()
+    vals = torch.cat([
+        torch.randint(0, 1 << 10, (n, 2), generator=gen, device=dev),
+        torch.randint(0, 1 << 12, (n, 1), generator=gen, device=dev),
+        torch.ones((n, 1), device=dev, dtype=torch.int64)], 1) \
+        .to(torch.float32)
+    got = m.segreduce(keys, vals, cap, cells)
+    ref = m.segreduce_plain(keys, vals, cap, cells)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int(got[3]) == int(torch.unique(keys[keys < cells]).numel())

@@ -1,5 +1,7 @@
 """The port's ``FusionEngine`` against the JAX package's, frame by frame, on
-the small rig of ``tests/test_engine.py`` with the raw depth link.
+the small rig of ``tests/test_engine.py`` with the raw depth link: the
+split-domain step (no raw cloud), and the reference's layout at
+``FusionConfig()``'s defaults in every mode and branch.
 
 The JAX engine runs its step under ``jax.disable_jit()``, op by op: under
 ``jit``, XLA:CPU contracts ``a * b + c`` into fused multiply-adds (a
@@ -19,12 +21,14 @@ import sys
 import numpy as np
 import jax
 import pytest
+import torch
 
 from ros_gpu_depthmap_fusion_tpu.core.config import FusionConfig as JCfg
 from ros_gpu_depthmap_fusion_tpu.core.camera import PinholeIntrinsics
 from ros_gpu_depthmap_fusion_tpu.pipeline import FusionEngine as JEngine
 
 from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig as TCfg
+from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid as TGrid
 from ros_gpu_depthmap_fusion_tpu_torch.pipeline import engine as teng
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -187,6 +191,9 @@ def test_port_imports_no_jax():
             "ros_gpu_depthmap_fusion_tpu_torch.pipeline.component, "
             "ros_gpu_depthmap_fusion_tpu_torch.mapping, "
             "ros_gpu_depthmap_fusion_tpu_torch.ops.kernels._build, "
+            "ros_gpu_depthmap_fusion_tpu_torch.ops.pack, "
+            "ros_gpu_depthmap_fusion_tpu_torch.ops.radius, "
+            "ros_gpu_depthmap_fusion_tpu_torch.ops.voxelize, "
             "ros_gpu_depthmap_fusion_tpu_torch.ops.kernels."
             "fused_unproject_rle; "
             "print(pre, 'jax' in sys.modules, "
@@ -199,13 +206,170 @@ def test_port_imports_no_jax():
     assert res.stdout.split() == ["False", "False", "False"], res.stdout
 
 
-@pytest.mark.parametrize("field,value", [
-    ("depth_link_codec", "png"), ("emit_raw_points", True),
-    ("stream_shapes", ((24, 32), (12, 16))), ("voxel_mean_mode", "exact"),
-    ("enable_radius_filter", True), ("voxel_enable_average", False)])
+@pytest.mark.parametrize("field,value", [("depth_link_codec", "png")])
 def test_unported_configs_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(ValueError, match=field):
         teng.FusionEngine(TCfg(**small_kw(**{field: value})), device="cpu")
+
+
+@pytest.mark.parametrize("field,kw", [
+    ("depth_link_codec", dict(depth_link_codec="dpcm_temporal")),
+    ("depth_codec_p4_budget", dict(depth_link_codec="dpcm",
+                                   depth_codec_p4_budget=48)),
+    ("voxel_mean_mode", dict(voxel_mean_mode="mean"))])
+def test_configs_refused_as_jax_refuses_them_raise(field, kw):
+    """What the JAX package refuses (temporal or p4 P-frames on a
+    heterogeneous rig; an unknown mode) raises ``ValueError`` naming the
+    field, at construction and in the step."""
+    shapes = dict(stream_shapes=((24, 32), (12, 16))) \
+        if field != "voxel_mean_mode" else {}
+    cfg = TCfg(**small_kw(**shapes, **kw))
+    with pytest.raises(ValueError, match=field):
+        teng.check_supported(cfg)
+    with pytest.raises(ValueError, match=field):
+        teng.FusionEngine(cfg, device="cpu")
+
+
+# -- the non-split step (the reference's layout) at FusionConfig()'s
+#    defaults, and every mode ----------------------------------------------
+
+ALL_FIELDS = EXACT + ("raw_points", "occupancy_u8")
+
+
+@pytest.fixture
+def jax_rle_interpret(monkeypatch):
+    """Run the JAX package's rle voxelize with its Pallas kernel in
+    interpret mode, as its own tests run it on the CPU."""
+    from ros_gpu_depthmap_fusion_tpu.ops import voxelize as jvox
+    orig = jvox.voxelize_average_rle_domains
+
+    def interpreted(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+    monkeypatch.setattr(jvox, "voxelize_average_rle_domains", interpreted)
+
+
+def rig_kw(**kw):
+    """The small rig's sizes on the raw link, every other field at
+    ``FusionConfig()``'s default (``emit_raw_points=True``,
+    ``voxel_mean_mode="auto"``, voxel filter and averaging on, dense
+    occupancy, no sparse blocks)."""
+    base = dict(
+        num_depth_streams=2, depth_height=24, depth_width=32,
+        num_point_sequences=1,
+        crop_min=(-5, -5, -5), crop_max=(5, 5, 5),
+        voxel_min=(-5, -5, -5), voxel_max=(5, 5, 5),
+        voxel_size=(0.5, 0.5, 0.5),
+        rollbuffer_point_capacity=256, rollbuffer_seq_capacity=16,
+        max_points_per_sequence=64, voxel_occupancy_lifetime=3,
+        depth_link_codec="none")
+    base.update(kw)
+    return base
+
+
+def run_pair(kw, n_frames=3, fields=ALL_FIELDS, seed=11):
+    """The JAX engine (op by op) and the port's on the CPU over the same
+    frames; every listed field bit-equal each frame. Returns the port's
+    last outputs."""
+    j = JEngine(JCfg(**kw))
+    t = teng.FusionEngine(TCfg(**kw), device="cpu")
+    for d, arc, nsec, now in frames(n_frames, seed=seed):
+        stage(j, d, arc, nsec)
+        stage(t, d, arc, nsec)
+        j_out = jax_process(j, now)
+        t_out = t.process(now)
+        assert_outputs_equal(t_out, j_out, fields)
+    assert int(t_out.fused_count) > 0 and int(t_out.raw_count) > 0
+    return t_out
+
+
+@pytest.mark.parametrize("emit_raw", [True, False])
+@pytest.mark.parametrize("mode", ["auto", "rle", "packed", "exact"])
+def test_engine_mode_matches_jax(jax_rle_interpret, mode, emit_raw):
+    """Each mode with and without the raw cloud: every output bit-equal to
+    the JAX engine's, the raw cloud and the dense occupancy included; the
+    partials count too where both sides run the named mode. At "auto" the
+    JAX package on the CPU runs "packed" and the port "rle" (the stated
+    rule, ``core/config.py``): equal outputs, partials count aside."""
+    kw = rig_kw(voxel_mean_mode=mode, emit_raw_points=emit_raw)
+    fields = ALL_FIELDS + (() if mode == "auto" else ("vox_partials_count",))
+    out = run_pair(kw, fields=fields)
+    total = TCfg(**kw).total_point_capacity
+    assert tuple(out.raw_points.shape) == ((total, 4) if emit_raw
+                                           else (1, 4))
+    assert (int(out.vox_partials_count) > 0) == (mode in ("auto", "rle"))
+
+
+@pytest.mark.parametrize("case,kw", [
+    ("occupied", dict(voxel_enable_average=False)),
+    ("no_voxel_filter", dict(enable_voxel_filter=False)),
+    ("radius_rle", dict(enable_radius_filter=True, voxel_mean_mode="rle",
+                        radius_filter_radius=0.06,
+                        radius_min=(-2, -2, 0), radius_max=(2, 2, 4))),
+    ("radius_packed_no_raw", dict(
+        enable_radius_filter=True, voxel_mean_mode="packed",
+        emit_raw_points=False, radius_filter_radius=0.06,
+        radius_min=(-2, -2, 0), radius_max=(2, 2, 4))),
+    ("sparse_blocks", dict(occupancy_sparse_capacity=64,
+                           voxel_mean_mode="exact"))])
+def test_engine_branch_matches_jax(jax_rle_interpret, case, kw):
+    """Occupied-cell corners, no voxel filter (the raw cloud is the
+    output), the radius filter, and sparse blocks on the non-split step:
+    every output bit-equal to the JAX engine's."""
+    out = run_pair(rig_kw(**kw), fields=ALL_FIELDS + ("vox_partials_count",))
+    if case == "no_voxel_filter":
+        assert int(out.fused_count) == int(out.raw_count)
+    if case.startswith("radius"):
+        plain = teng.FusionEngine(
+            TCfg(**rig_kw(**dict(kw, enable_radius_filter=False))), "cpu")
+        for d, arc, nsec, now in frames(3):
+            stage(plain, d, arc, nsec)
+            unfiltered = plain.process(now)
+        assert int(out.raw_count) < int(unfiltered.raw_count)
+
+
+def test_engine_defaults_match_jax():
+    """``FusionConfig()``'s defaults on the small rig, five frames."""
+    kw = rig_kw()
+    cfg = TCfg(**kw)
+    assert (cfg.emit_raw_points, cfg.voxel_mean_mode, cfg.emit_occupancy_u8,
+            cfg.enable_voxel_filter, cfg.voxel_enable_average) == (
+                True, "auto", True, True, True)
+    run_pair(kw, n_frames=5, seed=5)
+
+
+def test_auto_mode_rule():
+    """"auto" is "rle" below 2^24 cells and "packed" from there, on every
+    device; a named mode is kept; "rle" on a large grid raises."""
+    small = TCfg(**rig_kw())
+    big_kw = rig_kw(voxel_min=(0, 0, 0), voxel_max=(256, 256, 256),
+                    voxel_size=(1.0, 1.0, 1.0))
+    big = TCfg(**big_kw)
+    sgrid, bgrid = TGrid.from_config(small), TGrid.from_config(big)
+    assert sgrid.num_cells < (1 << 24) <= bgrid.num_cells
+    assert teng.resolve_mean_mode(small, sgrid) == "rle"
+    assert teng.resolve_mean_mode(big, bgrid) == "packed"
+    for mode in ("rle", "packed", "exact"):
+        assert teng.resolve_mean_mode(small.replace(voxel_mean_mode=mode),
+                                      sgrid) == mode
+    less = TGrid((0, 0, 0), (256, 256, 255), (1.0, 1.0, 1.0))
+    assert less.num_cells == (1 << 24) - 256 * 256
+    assert teng.resolve_mean_mode(small, less) == "rle"
+    pts = torch.zeros((4, 4))
+    with pytest.raises(ValueError, match="2\\^24"):
+        from ros_gpu_depthmap_fusion_tpu_torch.ops.voxelize import (
+            voxelize_average_rle)
+        voxelize_average_rle(pts, torch.zeros(4, dtype=torch.int32),
+                             torch.ones(4, dtype=torch.bool), bgrid, 4)
+
+
+def test_engine_large_grid_auto_matches_jax():
+    """One frame on a grid of 2^24 cells at "auto": both packages run
+    "packed"; every output bit-equal."""
+    kw = rig_kw(voxel_min=(-5, -5, -5), voxel_max=(5, 5, 5),
+                voxel_size=(10 / 256,) * 3, voxel_occupancy_lifetime=2)
+    assert TGrid.from_config(TCfg(**kw)).num_cells == 1 << 24
+    run_pair(kw, n_frames=1, fields=ALL_FIELDS + ("vox_partials_count",))
 
 
 def test_engine_needs_explicit_device():
