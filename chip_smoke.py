@@ -58,7 +58,24 @@ each:
    a result, and every step must launch the engine kernels. The same
    paced loop with mapping off runs before and after it, for the fused
    frame rate without the worker.
-7. kernels (after the loops, so that ``torch.profiler``, which times
+7. tum (the SLAM path): the hard synthetic TUM sequence (640x480, 150
+   frames, one closing orbit) rendered by the port's writer (timed
+   apart), then ``run_tum_sequence(..., pose_source="slam", ba_every=8,
+   loop_close=True, device="cuda")`` at the runner's own configuration
+   (one camera into a 320^3 = 32,768,000-cell grid, the ``"dpcm"`` link,
+   "auto" = "packed"; 512 keypoints, 64 RANSAC hypotheses, BA window 8
+   with 4 iterations every 8 keyframes, loop closure with 128): 150
+   frames, ATE below 10 cm, a loop-closed ATE, occupied cells, launches a
+   frame 1 / 1 / 1 / 0; host ms a frame of the odometry, the engine and
+   the whole runner, ms a ``run_ba`` and ``close_loops`` call. Then a
+   frame pair through ``detect_and_describe``, ``match`` and
+   ``ransac_pose`` (the same 64 sampled triples) and one captured BA
+   window, on the card and on the CPU port: keypoints, descriptors and
+   matches equal, inlier counts equal and the transform within 1e-5, BA
+   poses within 1e-4 m and 1e-4 rad, with each call's ms on the card;
+   then 20 groundtruth-posed frames, every step equal to its plain-twin
+   replay;
+8. kernels (after the loops, so that ``torch.profiler``, which times
    them, cannot touch the host-bound loops): each kernel's inputs are
    recorded from one frame of the link phase, and compact's and
    segreduce's also from a publish frame (the raw cloud's compaction,
@@ -77,10 +94,10 @@ each:
    ``rows[flags]``, the one PyTorch call that computes the same rows;
    then each publish mode's whole step, replayed from its tapped state:
    device ms and device activities a step, and its call ms;
-8. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
+9. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
    path) on the recorded frame's masked metric depth, against its twin
    (exact in all five outputs, with ``force_break`` 128 and, runs
-   crossing its tiles, 0), timed as in phase 7 beside its twin and
+   crossing its tiles, 0), timed as in phase 8 beside its twin and
    the engine's chain (unproject, crop, cell index, quantize, level-1
    segreduce), and the level-2 closure against that chain.
 
@@ -112,6 +129,8 @@ MAP_LAG = 4            # frames between a step and its drain (bench.py:500)
 RECORD_FRAME = 6       # the recorded step's frame (lidar window full)
 PUBLISH_FRAMES = 8
 HETERO_FRAMES = 6
+TUM_FRAMES = 150       # the hard synthetic sequence, 640x480, one orbit
+TUM_GT_FRAMES = 20     # groundtruth-posed frames held to the plain replay
 # the heterogeneous rig: 4 cameras at 848x480 and 4 at 640x360
 HETERO_SHAPES = ((H, W),) * 4 + ((360, 640),) * 4
 ENGINE_KERNELS = ("segreduce", "flying_pixels", "compact")
@@ -137,6 +156,9 @@ EXPECTED = {
     "publish_exact": _launches(0, 1, 2),
     "publish_occupied": _launches(0, 1, 2),
     "hetero": _launches(2, 2, 1), "hetero_sync": _launches(2, 2, 1),
+    # the TUM runner's engine: one 640x480 camera, raw cloud, a 320^3 grid
+    # (at least 2^24 cells: "auto" runs "packed")
+    "tum": _launches(1, 1, 1), "tum_gt": _launches(1, 1, 1),
 }
 REPLACES = {
     "segreduce": "ros_gpu_depthmap_fusion_tpu/ops/pallas/segreduce.py:233",
@@ -996,6 +1018,317 @@ def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
           f"== cpu | launches {launches} | {gpu}", flush=True)
 
 
+class timed_calls:
+    """Context manager: each ``(owner, attribute, key)`` callable is wrapped
+    to append its host ms (``time.perf_counter`` around the call) to the
+    list ``self.ms[key]`` (targets may share a key)."""
+
+    def __init__(self, targets):
+        self.targets, self.ms, self._saved = targets, {}, []
+
+    def __enter__(self):
+        for owner, attr, key in self.targets:
+            orig = getattr(owner, attr)
+            self.ms.setdefault(key, [])
+
+            def timed(*a, _orig=orig, _key=key, **k):
+                t = time.perf_counter()
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    self.ms[_key].append((time.perf_counter() - t) * 1e3)
+            setattr(owner, attr, timed)
+            self._saved.append((owner, attr, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+
+
+def _rot_err(a, b):
+    """Largest rotation angle (rad) between the [N, 3, 3] rotations of two
+    pose stacks, from the skew part of a^T b."""
+    rel = np.swapaxes(a[:, :3, :3], 1, 2).astype(np.float64) @ b[:, :3, :3]
+    sk = rel - np.swapaxes(rel, 1, 2)
+    return float(np.linalg.norm(np.stack([sk[:, 2, 1], sk[:, 0, 2],
+                                          sk[:, 1, 0]], -1), axis=-1).max()
+                 / 2)
+
+
+def ba_card_vs_cpu(torch, window, iterations=4, tie=1e-5):
+    """``solve_window``'s iterations on ``window`` (on the card) and on a
+    CPU copy. A step whose candidate changes chi2 by at most ``tie``
+    relative is a rounding tie: its accept decision rests on float32
+    summation order, which the card's atomic scatter-adds leave open, and
+    a flat direction can move poses by more than 1e-4 for no chi2 (seen on
+    the hard synthetic: 1.7e-4 m at a 1e-7 change). So: every step outside
+    a tie takes the same decision on both devices; with every decision
+    equal the poses agree within 1e-4 m and 1e-4 rad; where a tie went
+    the other way, the final chi2 agree within ``tie``. Returns the
+    numbers."""
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import ba
+    res = [ba._iterate(w, iterations, 1e-4)
+           for w in (window, ba.BAProblem(*(t.cpu() for t in window)))]
+    (pc, _, cc, kc), (ph, _, ch, kh) = [
+        (p.cpu().numpy(), l, c.cpu().double(), k.cpu().double())
+        for p, l, c, k in res]
+    acc_c, acc_h = (kc <= cc).tolist(), (kh <= ch).tolist()
+    ties = [bool(abs(a - b) <= tie * b) or bool(abs(x - y) <= tie * y)
+            for a, b, x, y in zip(kc.tolist(), cc.tolist(), kh.tolist(),
+                                  ch.tolist())]
+    out = dict(ba_accepts=(acc_c, acc_h), ba_ties=ties,
+               ba_t_err=float(np.abs(pc[:, :3, 3] - ph[:, :3, 3]).max()),
+               ba_r_err=_rot_err(pc, ph))
+    if any(a != b and not t for a, b, t in zip(acc_c, acc_h, ties)):
+        raise AssertionError(f"slam: BA accept decisions card {acc_c} vs "
+                             f"cpu {acc_h} outside a tie ({ties})")
+    if acc_c == acc_h:
+        if out["ba_t_err"] > 1e-4 or out["ba_r_err"] > 1e-4:
+            raise AssertionError(f"slam: BA card vs cpu {out['ba_t_err']} "
+                                 f"m, {out['ba_r_err']} rad")
+    else:
+        final = [float(k[-1] if a[-1] else c[-1]) for k, c, a in
+                 ((kc, cc, acc_c), (kh, ch, acc_h))]
+        if abs(final[0] - final[1]) > tie * final[1]:
+            raise AssertionError(f"slam: BA final chi2 card {final[0]} vs "
+                                 f"cpu {final[1]} after a tie")
+    return out
+
+
+def slam_parity(torch, root, window, gpu):
+    """One frame pair of the rendered sequence through the frontend and one
+    captured BA window, on the card and on the CPU port: keypoints,
+    descriptors and matches equal, RANSAC (the same 64 sampled triples on
+    both) with equal inlier counts and the transform within 1e-5, BA poses
+    within 1e-4 m and 1e-4 rad. Returns the numbers and call times."""
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.datasets import (
+        TumRgbdDataset)
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import ba
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import features as feat
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import pose_estimation as pe
+    ds = TumRgbdDataset(root)
+    intr = ds.intrinsics
+    frames = []
+    for f, frame in enumerate(ds):
+        if f in (10, 11):
+            frames.append(frame)
+        if f >= 11:
+            break
+    devs = (torch.device("cuda"), torch.device("cpu"))
+    out = {}
+    kps = []        # per device: per frame (keypoints, points, has depth)
+    for d in devs:
+        kps.append([])
+        for fr in frames:
+            img = torch.from_numpy(fr.intensity).to(d)
+            depth = torch.from_numpy(fr.depth_u16.astype(np.float32)
+                                     * fr.depth_scale).to(d)
+            k = feat.detect_and_describe(img, 512, 12.0)
+            pts, has_d = pe.unproject_keypoints(k.xy, depth, intr.fx,
+                                                intr.fy, intr.cx, intr.cy)
+            kps[-1].append((k, pts, has_d & k.valid))
+    out["angle_err"] = 0.0
+    for (kc, _, _), (kh, _, _) in zip(*kps):
+        for f in ("xy", "score", "valid", "desc"):
+            if not torch.equal(getattr(kc, f).cpu(), getattr(kh, f)):
+                raise AssertionError(f"slam: keypoint {f} card != cpu")
+        out["angle_err"] = max(out["angle_err"], float(
+            (kc.angle.cpu() - kh.angle).abs().max()))
+    if out["angle_err"] > 1e-6:
+        raise AssertionError(f"slam: angle card vs cpu {out['angle_err']}")
+    out["keypoints"] = int(kps[1][0][0].valid.sum())
+    m = [feat.match(k[0][0], k[1][0]) for k in kps]
+    for f in m[1]._fields:
+        if not torch.equal(getattr(m[0], f).cpu(), getattr(m[1], f)):
+            raise AssertionError(f"slam: match {f} card != cpu")
+    # RANSAC on the CPU's correspondences, the same draws on both devices
+    mh = m[1]
+    (_, pa, va), (_, pb, vb) = kps[1]
+    valid = mh.valid & va[mh.idx_a.long()] & vb[mh.idx_b.long()]
+    src, dst = pb[mh.idx_b.long()], pa[mh.idx_a.long()]
+    probs = valid.float() / valid.float().sum().clamp(min=1e-9)
+    idx = pe._sample_hypotheses(torch.Generator().manual_seed(7), probs, 64)
+    orig = pe._sample_hypotheses
+    pe._sample_hypotheses = lambda g, p, it: idx.to(p.device)
+    try:
+        rc, rh = (pe.ransac_pose(src.to(d), dst.to(d), valid.to(d),
+                                 torch.Generator(d).manual_seed(0),
+                                 iterations=64, inlier_threshold=0.08)
+                  for d in devs)
+        args = (src.to(devs[0]), dst.to(devs[0]), valid.to(devs[0]),
+                torch.Generator(devs[0]).manual_seed(0))
+        out["ransac_call_ms"] = cuda_ms(
+            torch, lambda: pe.ransac_pose(*args, iterations=64,
+                                          inlier_threshold=0.08))
+    finally:
+        pe._sample_hypotheses = orig
+    out["matches"] = int(valid.sum())
+    out["inliers"] = int(rh.num_inliers)
+    out["ransac_err"] = float((rc.transform.cpu() - rh.transform).abs().max())
+    if int(rc.num_inliers) != int(rh.num_inliers) or out["ransac_err"] > 1e-5:
+        raise AssertionError(f"slam: ransac inliers {int(rc.num_inliers)} "
+                             f"vs {int(rh.num_inliers)}, transform err "
+                             f"{out['ransac_err']}")
+    img_c = torch.from_numpy(frames[0].intensity).to(devs[0])
+    out["detect_call_ms"] = cuda_ms(
+        torch, lambda: feat.detect_and_describe(img_c, 512, 12.0))
+    kc0, kc1 = kps[0][0][0], kps[0][1][0]
+    out["match_call_ms"] = cuda_ms(torch, lambda: feat.match(kc0, kc1))
+    # one captured BA window, 4 iterations on each device
+    out.update(ba_card_vs_cpu(torch, window))
+    out["ba_window"] = (window.poses.shape[0], window.landmarks.shape[0],
+                        window.obs_pose.shape[0])
+    out["ba_call_ms"] = cuda_ms(
+        torch, lambda: ba.solve_window(window, iterations=4), reps=5, warm=1)
+    return out
+
+
+def tum_phase(torch, engmod, kmods, gpu):
+    """The SLAM path (``pipeline/tum_runner.py run_tum_sequence``) on the
+    card at full width: the hard synthetic sequence (640x480, 150 frames,
+    one closing orbit) rendered by the port's writer, then SLAM poses
+    (512 keypoints, 64 RANSAC hypotheses, BA every 8 keyframes, loop
+    closure with 128) into the runner's own configuration (32.8M cells,
+    "dpcm" link, "packed"). Then the frontend and BA card == CPU on a frame
+    pair and a captured window, and 20 groundtruth-posed frames each equal
+    to its plain-twin step. Returns launches by path."""
+    import tempfile
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline import tum_runner
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import frontend, loop_closure
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="tum_hard_") as root:
+        t0 = time.perf_counter()
+        tum_runner.write_hard_synthetic_tum_sequence(root)
+        render_s = time.perf_counter() - t0
+
+        windows, graphs = [], []
+        solve, optimize = frontend.solve_window, loop_closure.optimize
+
+        def keep_window(problem, **kw):
+            if not windows:
+                windows.append(problem)
+            return solve(problem, **kw)
+
+        def keep_graph(graph, **kw):
+            graphs.append((graph, kw))
+            return optimize(graph, **kw)
+        frontend.solve_window = keep_window
+        loop_closure.optimize = keep_graph
+        zero_counts(kmods)
+        Odo, Eng = frontend.RgbdOdometry, engmod.FusionEngine
+        try:
+            with timed_calls([(Odo, "process", "odometry"),
+                              (Eng, "add_depthmap", "engine"),
+                              (Eng, "process", "engine"),
+                              (Odo, "run_ba", "run_ba"),
+                              (tum_runner, "close_loops", "close_loops"),
+                              (loop_closure.LoopCloser, "_verify", "verify"),
+                              (loop_closure, "optimize", "pose_graph")]
+                             ) as tc:
+                t0 = time.perf_counter()
+                res = tum_runner.run_tum_sequence(
+                    root, pose_source="slam", ba_every=8, loop_close=True,
+                    device="cuda")
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+        finally:
+            frontend.solve_window = solve
+            loop_closure.optimize = optimize
+        launches["tum"] = {n: m.launches for n, m in kmods.items()}
+        if res.frames != TUM_FRAMES:
+            raise AssertionError(f"tum: {res.frames} frames")
+        check_launches(kmods, EXPECTED["tum"], res.frames, "tum")
+        if res.ate_rmse_m is None or not res.ate_rmse_m < 0.10:
+            raise AssertionError(f"tum: ATE {res.ate_rmse_m} m")
+        if res.ate_rmse_loop_closed_m is None:
+            raise AssertionError("tum: no loop-closed ATE")
+        if res.occupied_cells <= 0:
+            raise AssertionError("tum: no occupied cells")
+        if not windows:
+            raise AssertionError("tum: BA never ran")
+        ms = tc.ms
+        odo_ms = float(np.mean(ms["odometry"]))
+        eng_ms = float(np.sum(ms["engine"])) / res.frames
+        par = slam_parity(torch, root, windows[0], gpu)
+        # the last pose-graph solve once more (none without loop edges):
+        # the first use of torch.func's forward-mode rules in a process
+        # costs extra
+        pg_again = "none"
+        if graphs:
+            t0 = time.perf_counter()
+            optimize(graphs[-1][0], **graphs[-1][1])
+            torch.cuda.synchronize()
+            pg_again = f"{(time.perf_counter() - t0) * 1e3:.2f} ms"
+
+        # groundtruth poses: every step held to its plain-twin replay
+        steps = []
+        step = Eng.step
+
+        def replayed(self, inp, depth_bits=None):
+            state = self.state
+            out = step(self, inp, depth_bits)
+            _, ref = engmod.fusion_step(
+                state, inp, depth_bits, cfg=self.cfg, grid=self.grid,
+                output_capacity=self.output_capacity, plain=True)
+            assert_outputs_equal(torch, out, ref, f"tum groundtruth frame "
+                                 f"{len(steps)} vs the plain-twin step")
+            steps.append(int(out.fused_count))
+            return out
+        Eng.step = replayed
+        zero_counts(kmods)
+        try:
+            gt = tum_runner.run_tum_sequence(
+                root, pose_source="groundtruth", max_frames=TUM_GT_FRAMES,
+                device="cuda")
+        finally:
+            Eng.step = step
+        launches["tum_gt"] = check_launches(kmods, EXPECTED["tum_gt"],
+                                            TUM_GT_FRAMES, "tum groundtruth")
+        if gt.frames != TUM_GT_FRAMES or len(steps) != TUM_GT_FRAMES \
+                or gt.occupied_cells <= 0 or gt.ate_rmse_m > 1e-6:
+            raise AssertionError(f"tum groundtruth: {gt.frames} frames, "
+                                 f"{len(steps)} steps, occupied "
+                                 f"{gt.occupied_cells}, ATE {gt.ate_rmse_m}")
+    lc = res.ate_rmse_loop_closed_m
+    per = {n: c / res.frames for n, c in launches["tum"].items()}
+    print(f"[tum] hard synthetic 640x480 x {TUM_FRAMES} (rendered by the "
+          f"port's writer in {render_s:.1f} s, host numpy), SLAM poses: "
+          f"frames {res.frames}, keyframes {res.keyframes}, loop edges "
+          f"{res.loop_edges} | ATE {res.ate_rmse_m * 100:.2f} cm full-frame, "
+          f"{lc * 100:.2f} cm loop-closed keyframes | occupied cells "
+          f"{res.occupied_cells} of 32,768,000, fused points (last frame) "
+          f"{res.fused_points_last} | host ms/frame: odometry {odo_ms:.2f} "
+          f"(median {float(np.median(ms['odometry'])):.2f}), engine "
+          f"add+process {eng_ms:.2f}, whole runner "
+          f"{run_s * 1e3 / res.frames:.2f} (PNG decode, BA and loop closure "
+          f"included) | run_ba {len(ms['run_ba'])} calls, "
+          f"{float(np.mean(ms['run_ba'])):.2f} ms each | close_loops "
+          f"{len(ms['close_loops'])} call(s), "
+          f"{float(np.mean(ms['close_loops'])):.2f} ms ({len(ms['verify'])} "
+          f"verifications {float(np.sum(ms['verify'])):.2f} ms, "
+          f"{len(ms['pose_graph'])} pose-graph solve(s) "
+          f"{float(np.sum(ms['pose_graph'])):.2f} ms, the last again "
+          f"{pg_again}) | launches per frame "
+          f"{per} | card == cpu on frames 10-11: {par['keypoints']} "
+          f"keypoints, descriptors and {par['matches']} matches equal (angle "
+          f"within {par['angle_err']:.1e}), RANSAC {par['inliers']} inliers "
+          f"equal, transform within {par['ransac_err']:.1e}; BA window "
+          f"{par['ba_window']} (poses, landmarks, observations) 4 iterations, "
+          f"accepted card {par['ba_accepts'][0]} / cpu "
+          f"{par['ba_accepts'][1]} (rounding ties {par['ba_ties']}), poses "
+          f"within {par['ba_t_err']:.1e} m, {par['ba_r_err']:.1e} rad | "
+          f"call ms on the card (CUDA events, host included): "
+          f"detect_and_describe {par['detect_call_ms']:.3f}, match "
+          f"{par['match_call_ms']:.3f}, ransac_pose (64 hypotheses) "
+          f"{par['ransac_call_ms']:.3f}, solve_window (4 iterations) "
+          f"{par['ba_call_ms']:.3f} | groundtruth poses, {TUM_GT_FRAMES} "
+          f"frames: every step equal to its plain-twin replay, occupied "
+          f"{gt.occupied_cells}, fused {gt.fused_points_last} | {gpu}",
+          flush=True)
+    return launches
+
+
 def time_site(torch, name, site_calls, wrapper, what, per_frame, gpu):
     """Hold engine kernel ``name`` to its twin on each recorded call of a
     frame (exact), and time them: per frame, the device ms, call ms,
@@ -1219,7 +1552,10 @@ def main():
     # -- 6. mapping on --
     mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu)
 
-    # -- 7. each engine kernel against its twin at each call site: the
+    # -- 7. the SLAM path: the TUM runner on the hard synthetic sequence --
+    by_path.update(tum_phase(torch, engmod, kmods, gpu))
+
+    # -- 8. each engine kernel against its twin at each call site: the
     #    recorded link frame, the publish frame (the raw cloud's compaction,
     #    level 1 + level 2 over it) and the packed frame (one reduction of
     #    the sorted stream); after the loops, so that torch.profiler cannot
@@ -1263,7 +1599,7 @@ def main():
               flush=True)
     del pub_taps
 
-    # -- 8. kernel 4, the fused front, on the recorded frame --
+    # -- 9. kernel 4, the fused front, on the recorded frame --
     depth_masked, (k_intr, k_tfw, k_tfc, scale), fargs = fused_inputs(
         torch, calls, cfg, grid)
     depth_m, cap = fargs[0], fargs[7]
@@ -1352,7 +1688,8 @@ def main():
              "publish": PUBLISH_FRAMES, "publish_sync": PUBLISH_FRAMES,
              "publish_packed": PUBLISH_FRAMES, "publish_exact": 2,
              "publish_occupied": 2, "hetero": HETERO_FRAMES,
-             "hetero_sync": HETERO_FRAMES}
+             "hetero_sync": HETERO_FRAMES, "tum": TUM_FRAMES,
+             "tum_gt": TUM_GT_FRAMES}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     launches_per_frame=per_frame[name],

@@ -3,7 +3,8 @@ H100 (Hopper, ``sm_90a``).
 
 The JAX package is the reference; this package is its counterpart module
 for module (``core/``, ``ops/``, ``ops/kernels/`` in place of
-``ops/pallas/``, ``state/``, ``pipeline/``), held to it by the
+``ops/pallas/``, ``state/``, ``pipeline/``, ``mapping/``, ``slam/``,
+``utils/``), held to it by the
 ``tests/test_torch_*.py`` parity tests. It imports ``torch`` and never
 ``jax``. Every Pallas kernel on the ported path is a hand-written CUDA
 kernel under ``csrc/``, compiled with ``nvcc`` at first use; each has a
@@ -23,9 +24,12 @@ filter, heterogeneous rigs, on the raw or the coded depth link
 (``"dpcm"``, ``"dpcm_temporal"`` with p4 P-frames; encoders in the native
 host library), with ``pipeline_depth`` 0 or 1; the mapping
 (``MappingPipeline``: device or native host segmentation, object
-assembly, tracking; ``AsyncMappingWorker``); and the streaming component
-(``FusionComponent``). What the JAX package refuses raises ``ValueError``
-naming the field.
+assembly, tracking; ``AsyncMappingWorker``); the streaming component
+(``FusionComponent``); and the SLAM path (``slam/``: features, RANSAC,
+windowed BA, odometry, pose graph, loop closure; ``pipeline/tum_runner.py``
+with ``pipeline/datasets.py``) with ``utils/`` png, checkpoint, profiling
+and viz. What the JAX package refuses raises ``ValueError`` naming the
+field.
 """
 
 import torch

@@ -774,3 +774,153 @@ def test_segreduce_kernel_sorted_full_stream_equals_twin(dev, p):
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert int(got[3]) == int(torch.unique(keys[keys < cells]).numel())
+
+
+# --- SLAM (slam/, no kernel of its own: plain PyTorch on the card) ---------
+
+def _slam_frames(w=320, h=240, n=2):
+    """``n`` rendered views of a textured scene: (intrinsics, [(pose,
+    integer-valued intensity, depth in metres)])."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.datasets import (
+        Box, Sphere, SyntheticRigDataset)
+    intr = PinholeIntrinsics.default_for(w, h)
+    rng = np.random.default_rng(9)
+    ds = SyntheticRigDataset(
+        intr, spheres=[Sphere(rng.uniform(-2, 2, 3) + [0, 0, 3.5],
+                              rng.uniform(0.2, 0.5)) for _ in range(8)],
+        boxes=[Box(np.array([-0.5, -0.5, 4.0]), np.array([0.8, 0.6, 5.0]))],
+        ground_z=None)
+    out = []
+    for f in range(n):
+        pose = transforms.make_se3(transforms.rot_y(0.02 * f),
+                                   np.array([0.04 * f, 0.02 * f, 0.0]))
+        d, img = ds.render(pose)
+        out.append((pose, np.clip(np.round(img), 0, 255).astype(np.float32),
+                    (d * 0.001).astype(np.float32)))
+    return intr, out
+
+
+def test_tf32_is_off_after_import():
+    import ros_gpu_depthmap_fusion_tpu_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_slam_features_and_match_on_card_equal_cpu(dev):
+    """FAST, the stable top-K, BRIEF steered by IEEE division and square
+    root, and the SWAR Hamming distances round the same on the card: the
+    keypoints, descriptors and matches equal the CPU port's (the angle,
+    from ``arctan2``, within 1e-6)."""
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import features as feat
+    _, frames = _slam_frames()
+    kps = []
+    for _, img, _ in frames:
+        k_c = feat.detect_and_describe(torch.from_numpy(img).to(dev), 512)
+        k_h = feat.detect_and_describe(torch.from_numpy(img), 512)
+        for f in ("xy", "score", "valid", "desc"):
+            assert torch.equal(getattr(k_c, f).cpu(), getattr(k_h, f)), f
+        assert float((k_c.angle.cpu() - k_h.angle).abs().max()) <= 1e-6
+        assert int(k_h.valid.sum()) > 100
+        kps.append((k_c, k_h))
+    m_c = feat.match(kps[0][0], kps[1][0])
+    m_h = feat.match(kps[0][1], kps[1][1])
+    for f in m_h._fields:
+        assert torch.equal(getattr(m_c, f).cpu(), getattr(m_h, f)), f
+    assert int(m_h.valid.sum()) > 50
+
+
+def test_slam_ransac_with_fixed_draws_on_card_matches_cpu(dev, monkeypatch):
+    """The same 64 sampled triples on both devices: equal inlier counts,
+    the transform within 1e-5 (cuSOLVER's and LAPACK's singular vectors
+    may differ in sign; R does not depend on it)."""
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import pose_estimation as pe
+    rng = np.random.default_rng(4)
+    n = 300
+    src = (rng.normal(size=(n, 3)) * 2).astype(np.float32)
+    c, s = np.cos(0.4), np.sin(0.4)
+    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    dst = (src @ rot.T + [0.3, 0.1, -0.2]).astype(np.float32)
+    out = rng.random(n) < 0.4
+    dst[out] += rng.normal(size=(out.sum(), 3)).astype(np.float32)
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    probs = valid.float() / valid.float().sum()
+    idx = pe._sample_hypotheses(torch.Generator().manual_seed(3), probs, 64)
+    monkeypatch.setattr(pe, "_sample_hypotheses",
+                        lambda g, p, it: idx.to(p.device))
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        res[d.type] = pe.ransac_pose(
+            torch.from_numpy(src).to(d), torch.from_numpy(dst).to(d),
+            valid.to(d), torch.Generator(d).manual_seed(0), iterations=64,
+            inlier_threshold=0.08)
+    c, h = res["cuda"], res["cpu"]
+    assert int(c.num_inliers) == int(h.num_inliers) > 100
+    assert torch.equal(c.inliers.cpu(), h.inliers)
+    assert float((c.transform.cpu() - h.transform).abs().max()) <= 1e-5
+
+
+def _slam_window(dev):
+    """A BA window from the port's odometry over 8 frames on ``dev``."""
+    from ros_gpu_depthmap_fusion_tpu_torch.slam.frontend import RgbdOdometry
+    intr, frames = _slam_frames(160, 120, 8)
+    odo = RgbdOdometry(intr, dev, max_keypoints=256, min_inliers=8,
+                       keyframe_translation=0.08, inlier_threshold=0.1)
+    for f, (_, img, depth) in enumerate(frames):
+        odo.process(f / 30.0, img, depth)
+    return odo, odo.build_ba_window(8)[0]
+
+
+def test_slam_solve_window_on_card_matches_cpu(dev):
+    """4 iterations on the same window: the same accept decisions outside
+    rounding ties, poses within 1e-4 m and 1e-4 rad when every decision
+    agrees, the same final chi2 when a tie went the other way (the card's
+    scatter-adds are atomics in no fixed order; ``chip_smoke.py
+    ba_card_vs_cpu`` says why a tie can move poses further)."""
+    from chip_smoke import ba_card_vs_cpu
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import ba
+    _, prob = _slam_window(dev)
+    out = ba_card_vs_cpu(torch, prob)
+    assert out["ba_accepts"][1][0]        # the first step improves chi2
+    got, _ = ba.solve_window(prob, iterations=4)
+    assert got.poses.device.type == "cuda"
+
+
+def test_slam_pose_graph_on_card_matches_cpu(dev):
+    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import pose_graph as pg
+    rng = np.random.default_rng(7)
+    n = 6
+    poses = [np.eye(4, dtype=np.float32)]
+    for _ in range(1, n):
+        poses.append((poses[-1] @ transforms.make_se3(
+            transforms.rot_z(2 * np.pi / n), np.array([1.0, 0, 0])))
+            .astype(np.float32))
+    poses = np.stack(poses)
+    noisy = poses.copy()
+    noisy[1:, :3, 3] += (rng.normal(size=(n - 1, 3)) * 0.1).astype(np.float32)
+    ei, ej = list(range(n - 1)) + [n - 1], list(range(1, n)) + [0]
+    ez = np.stack([np.linalg.inv(poses[i]) @ poses[j]
+                   for i, j in zip(ei, ej)]).astype(np.float32)
+    arrays = (noisy, np.array(ei, np.int32), np.array(ej, np.int32), ez,
+              np.ones(len(ei), np.float32))
+    got, gchi = pg.optimize(pg.PoseGraph(*(torch.from_numpy(a).to(dev)
+                                           for a in arrays)))
+    ref, rchi = pg.optimize(pg.PoseGraph(*map(torch.from_numpy, arrays)))
+    assert float((got.poses.cpu() - ref.poses).abs().max()) <= 1e-4
+    assert float(gchi[-1]) < float(gchi[0]) * 1e-4
+
+
+def test_slam_modules_keep_tensors_on_their_device(dev):
+    """The odometry's keypoints, generator and BA window, and the loop
+    closer's generator, live on the device they were given."""
+    from ros_gpu_depthmap_fusion_tpu_torch.slam.loop_closure import (
+        LoopCloser)
+    odo, prob = _slam_window(dev)
+    assert odo.generator.device.type == "cuda"
+    for kf in odo.keyframes:
+        assert all(t.device.type == "cuda" for t in kf.kps)
+    assert all(t.device.type == "cuda" for t in prob)
+    assert LoopCloser(dev).generator.device.type == "cuda"

@@ -195,7 +195,15 @@ def test_port_imports_no_jax():
             "ros_gpu_depthmap_fusion_tpu_torch.ops.radius, "
             "ros_gpu_depthmap_fusion_tpu_torch.ops.voxelize, "
             "ros_gpu_depthmap_fusion_tpu_torch.ops.kernels."
-            "fused_unproject_rle; "
+            "fused_unproject_rle, "
+            "ros_gpu_depthmap_fusion_tpu_torch.slam, "
+            "ros_gpu_depthmap_fusion_tpu_torch.slam.loop_closure, "
+            "ros_gpu_depthmap_fusion_tpu_torch.pipeline.tum_runner, "
+            "ros_gpu_depthmap_fusion_tpu_torch.pipeline.datasets, "
+            "ros_gpu_depthmap_fusion_tpu_torch.utils.checkpoint, "
+            "ros_gpu_depthmap_fusion_tpu_torch.utils.png, "
+            "ros_gpu_depthmap_fusion_tpu_torch.utils.profiling, "
+            "ros_gpu_depthmap_fusion_tpu_torch.utils.viz; "
             "print(pre, 'jax' in sys.modules, "
             "any(m.startswith('ros_gpu_depthmap_fusion_tpu.') "
             "or m == 'ros_gpu_depthmap_fusion_tpu' for m in sys.modules))")
