@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # one card: every phase below
+    python3 chip_smoke.py --sharded-nccl   # four cards: the distributed
+                                           # engine over NCCL only
 
 Drives the port (``ros_gpu_depthmap_fusion_tpu_torch``) at the operating
 point of ``bench.py``: 8 depth cameras at 848x480 plus 2 lidar streams of
@@ -74,7 +76,20 @@ each:
    matches equal, inlier counts equal and the transform within 1e-5, BA
    poses within 1e-4 m and 1e-4 rad, with each call's ms on the card;
    then 20 groundtruth-posed frames, every step equal to its plain-twin
-   replay;
+   replay; then the distributed engine (``parallel/``): the publish
+   configuration at "packed" through ``ShardedFusionEngine`` in spawned
+   ranks (the kernels and the native library built here first), 8 frames
+   on one rank over NCCL (mesh 1 x 1, synchronous and pipelined, every
+   frame equal to the single engine's in the same process: occupancy, raw
+   rows, fused rows, bits == occupancy > 0; its ``segment_and_track``
+   equal too) and on four ranks sharing ``cuda:0`` over gloo (mesh stream
+   2 x space 2, every frame's digests equal to the 1 x 1 run's on every
+   rank); launches a frame as ``EXPECTED`` on each run, ms/frame of each
+   beside the single engine's; the sharded BA over the stream axis on the
+   BA window captured from the SLAM run, against ``solve_window`` on the
+   card (poses within 1e-4, ties as ``ba_agree`` states); and rank 0 of
+   each world holds each kernel call of one recorded synchronous frame to
+   its twin and times it, as phase 8 does (after that world's loops);
 8. kernels (after the loops, so that ``torch.profiler``, which times
    them, cannot touch the host-bound loops): each kernel's inputs are
    recorded from one frame of the link phase, and compact's and
@@ -91,7 +106,8 @@ each:
    call must move over 3.35 TB/s, or its float32 operations over 67
    TFLOP/s, whichever is larger), its launches per frame, the twin's
    device and call ms, and for compact ``library_ms``, the device ms of
-   ``rows[flags]``, the one PyTorch call that computes the same rows;
+   ``rows[flags]``, the one PyTorch call that computes the same rows, on
+   each of the frame's calls;
    then each publish mode's whole step, replayed from its tapped state:
    device ms and device activities a step, and its call ms;
 9. fused front: kernel 4 (``unproject_voxelize_l1``, not on the engine's
@@ -106,8 +122,15 @@ launches per frame, also by path), errors, device, call, twin, bound and
 library times (also by timed call site), the ``nvidia-smi`` line, and,
 last, ``{"ok": true, "device": ...}``. Any failure is an uncaught exception and a non-zero exit; without a
 CUDA device it exits non-zero before printing any result.
+
+``--sharded-nccl`` (at least four cards) runs only the build and the
+distributed engine over NCCL with one rank a card: the 1 x 1 run as above
+(on ``cuda:0``, held to the single engine), then meshes 2 x 2 and 4 x 1 on
+four ranks, every frame's digests and ``segment_and_track`` equal to the
+1 x 1 run's on every rank, launches a frame as ``EXPECTED``.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -131,6 +154,8 @@ PUBLISH_FRAMES = 8
 HETERO_FRAMES = 6
 TUM_FRAMES = 150       # the hard synthetic sequence, 640x480, one orbit
 TUM_GT_FRAMES = 20     # groundtruth-posed frames held to the plain replay
+SHARDED_FRAMES = PUBLISH_FRAMES
+BA_ITERS = 8           # the sharded BA's iterations (solve_window's default)
 # the heterogeneous rig: 4 cameras at 848x480 and 4 at 640x360
 HETERO_SHAPES = ((H, W),) * 4 + ((360, 640),) * 4
 ENGINE_KERNELS = ("segreduce", "flying_pixels", "compact")
@@ -159,6 +184,13 @@ EXPECTED = {
     # the TUM runner's engine: one 640x480 camera, raw cloud, a 320^3 grid
     # (at least 2^24 cells: "auto" runs "packed")
     "tum": _launches(1, 1, 1), "tum_gt": _launches(1, 1, 1),
+    # a rank of the sharded engine (publish at "packed"): its cameras'
+    # filter, one reduction of its sorted stream, and four compactions (its
+    # sequence records, its staged points, its raw cloud, its fused
+    # sub-slab)
+    "sharded_1x1": _launches(1, 1, 4),
+    "sharded_1x1_pipelined": _launches(1, 1, 4),
+    "sharded_2x2": _launches(1, 1, 4), "sharded_4x1": _launches(1, 1, 4),
 }
 REPLACES = {
     "segreduce": "ros_gpu_depthmap_fusion_tpu/ops/pallas/segreduce.py:233",
@@ -170,6 +202,16 @@ REPLACES = {
 }
 SOURCES = {name: f"ros_gpu_depthmap_fusion_tpu_torch/csrc/{name}.cu"
            for name in KERNELS}
+
+
+def kernel_wrappers():
+    """Each engine kernel's (wrapper, plain twin)."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
+        compact, flying_pixels, segreduce)
+    return {"segreduce": (segreduce.segreduce, segreduce.segreduce_plain),
+            "flying_pixels": (flying_pixels.filter_flying_pixels,
+                              flying_pixels.filter_flying_pixels_plain),
+            "compact": (compact.compact_rows, compact.compact_plain)}
 
 
 def link_config(FusionConfig, h=H, w=W, c=C, lidar_pts=LIDAR_PTS, **kw):
@@ -1056,23 +1098,20 @@ def _rot_err(a, b):
                  / 2)
 
 
-def ba_card_vs_cpu(torch, window, iterations=4, tie=1e-5):
-    """``solve_window``'s iterations on ``window`` (on the card) and on a
-    CPU copy. A step whose candidate changes chi2 by at most ``tie``
-    relative is a rounding tie: its accept decision rests on float32
-    summation order, which the card's atomic scatter-adds leave open, and
-    a flat direction can move poses by more than 1e-4 for no chi2 (seen on
-    the hard synthetic: 1.7e-4 m at a 1e-7 change). So: every step outside
-    a tie takes the same decision on both devices; with every decision
-    equal the poses agree within 1e-4 m and 1e-4 rad; where a tie went
-    the other way, the final chi2 agree within ``tie``. Returns the
-    numbers."""
-    from ros_gpu_depthmap_fusion_tpu_torch.slam import ba
-    res = [ba._iterate(w, iterations, 1e-4)
-           for w in (window, ba.BAProblem(*(t.cpu() for t in window)))]
-    (pc, _, cc, kc), (ph, _, ch, kh) = [
-        (p.cpu().numpy(), l, c.cpu().double(), k.cpu().double())
-        for p, l, c, k in res]
+def ba_agree(a, b, names, tie=1e-5):
+    """Two runs of the same BA iterations, each (poses, chi2 before each
+    step, each step's candidate chi2) on any device. A step whose
+    candidate changes chi2 by at most ``tie`` relative is a rounding tie:
+    its accept decision rests on float32 summation order, which the card's
+    atomic scatter-adds leave open, and a flat direction can move poses by
+    more than 1e-4 for no chi2 (seen on the hard synthetic: 1.7e-4 m at a
+    1e-7 change). So: every step outside a tie takes the same decision in
+    both runs; with every decision equal the poses agree within 1e-4 m and
+    1e-4 rad; where a tie went the other way, the final chi2 agree within
+    ``tie``. ``names`` label the two runs. Returns the numbers."""
+    (pc, cc, kc), (ph, ch, kh) = [
+        (p.cpu().numpy(), c.cpu().double(), k.cpu().double())
+        for p, c, k in (a, b)]
     acc_c, acc_h = (kc <= cc).tolist(), (kh <= ch).tolist()
     ties = [bool(abs(a - b) <= tie * b) or bool(abs(x - y) <= tie * y)
             for a, b, x, y in zip(kc.tolist(), cc.tolist(), kh.tolist(),
@@ -1080,20 +1119,31 @@ def ba_card_vs_cpu(torch, window, iterations=4, tie=1e-5):
     out = dict(ba_accepts=(acc_c, acc_h), ba_ties=ties,
                ba_t_err=float(np.abs(pc[:, :3, 3] - ph[:, :3, 3]).max()),
                ba_r_err=_rot_err(pc, ph))
+    what = f"BA {names[0]} vs {names[1]}"
     if any(a != b and not t for a, b, t in zip(acc_c, acc_h, ties)):
-        raise AssertionError(f"slam: BA accept decisions card {acc_c} vs "
-                             f"cpu {acc_h} outside a tie ({ties})")
+        raise AssertionError(f"{what}: accept decisions {acc_c} vs {acc_h} "
+                             f"outside a tie ({ties})")
     if acc_c == acc_h:
         if out["ba_t_err"] > 1e-4 or out["ba_r_err"] > 1e-4:
-            raise AssertionError(f"slam: BA card vs cpu {out['ba_t_err']} "
-                                 f"m, {out['ba_r_err']} rad")
+            raise AssertionError(f"{what}: poses {out['ba_t_err']} m, "
+                                 f"{out['ba_r_err']} rad apart")
     else:
         final = [float(k[-1] if a[-1] else c[-1]) for k, c, a in
                  ((kc, cc, acc_c), (kh, ch, acc_h))]
         if abs(final[0] - final[1]) > tie * final[1]:
-            raise AssertionError(f"slam: BA final chi2 card {final[0]} vs "
-                                 f"cpu {final[1]} after a tie")
+            raise AssertionError(f"{what}: final chi2 {final[0]} vs "
+                                 f"{final[1]} after a tie")
     return out
+
+
+def ba_card_vs_cpu(torch, window, iterations=4, tie=1e-5):
+    """``solve_window``'s iterations on ``window`` (on the card) and on a
+    CPU copy, held together by :func:`ba_agree`."""
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import ba
+    res = [ba._iterate(w, iterations, 1e-4)
+           for w in (window, ba.BAProblem(*(t.cpu() for t in window)))]
+    return ba_agree(*[(p, c, k) for p, _, c, k in res],
+                    names=("slam: card", "cpu"), tie=tie)
 
 
 def slam_parity(torch, root, window, gpu):
@@ -1192,7 +1242,9 @@ def tum_phase(torch, engmod, kmods, gpu):
     closure with 128) into the runner's own configuration (32.8M cells,
     "dpcm" link, "packed"). Then the frontend and BA card == CPU on a frame
     pair and a captured window, and 20 groundtruth-posed frames each equal
-    to its plain-twin step. Returns launches by path."""
+    to its plain-twin step. Returns launches by path, and the first BA
+    window of the SLAM run (numpy: poses, landmarks, obs_pose, obs_lm,
+    obs_pt, obs_valid)."""
     import tempfile
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline import tum_runner
     from ros_gpu_depthmap_fusion_tpu_torch.slam import frontend, loop_closure
@@ -1326,7 +1378,343 @@ def tum_phase(torch, engmod, kmods, gpu):
           f"frames: every step equal to its plain-twin replay, occupied "
           f"{gt.occupied_cells}, fused {gt.fused_points_last} | {gpu}",
           flush=True)
-    return launches
+    return launches, tuple(t.cpu().numpy() for t in windows[0])
+
+
+def shard_window(window, n_shards):
+    """A BA window (numpy poses, landmarks, obs_pose, obs_lm, obs_pt,
+    obs_valid) sharded landmark-major over ``n_shards``: the landmarks
+    padded with unobserved zeros to a multiple of ``n_shards`` (such a
+    landmark's block is the damping alone and its step 0, so the poses'
+    system is unchanged), each shard's observations with landmark indices
+    local to it, padded invalid. Returns (per shard (landmarks, obs_pose,
+    obs_lm, obs_pt, obs_valid), landmarks a shard, observations a
+    shard)."""
+    _, lms, op, ol, pt, valid = window
+    lps = -(-len(lms) // n_shards)
+    lms = np.pad(lms, ((0, lps * n_shards - len(lms)), (0, 0)))
+    members = [np.flatnonzero(ol // lps == d) for d in range(n_shards)]
+    ops = max(len(i) for i in members)
+    shards = []
+    for d, idx in enumerate(members):
+        pad = (0, ops - len(idx))
+        shards.append((lms[d * lps:(d + 1) * lps], np.pad(op[idx], pad),
+                       np.pad(ol[idx] - d * lps, pad),
+                       np.pad(pt[idx], (pad, (0, 0))),
+                       np.pad(valid[idx], pad)))
+    return shards, lps, ops
+
+
+def sha(a):
+    """sha256 of an array's bytes."""
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def sorted_rows_sha(torch, rows):
+    """:func:`sha` of ``[N, 4]`` float32 rows sorted lexicographically by
+    their bits, on the card: the raw cloud's digest, whose row order
+    follows the stream shards."""
+    t = torch.from_numpy(np.ascontiguousarray(rows)).cuda()
+    bits = t.view(torch.int32)
+    order = torch.arange(t.shape[0], device=t.device)
+    for col in range(t.shape[1] - 1, -1, -1):
+        order = order[torch.sort(bits[order, col], stable=True)[1]]
+    return sha(t[order].cpu().numpy())
+
+
+def sharded_rank(rank, shape, frames, opts):
+    """One rank of the ``[sharded]`` phase: the publish configuration at
+    "packed" through ``ShardedFusionEngine`` on a ``shape`` mesh for
+    ``frames`` frames, synchronous (and on a 1 x 1 mesh also pipelined),
+    the launches of each run counted from 0; the host views (collective)
+    digested frame by frame; ``segment_and_track`` on the last frame.
+    ``opts``: ``cards``, the cards the ranks spread over (rank r on
+    ``cuda:r % cards``); ``with_single``, the single engine runs the same
+    frames in this process first, and every frame of the sharded engine is
+    held to it exactly, its objects and tracks too; ``window``, a BA window
+    (numpy, or None) that the sharded BA solves over the stream axis
+    (:func:`sharded_ba`); ``gpu``, the ``nvidia-smi`` line (or None), and
+    then rank 0 holds each kernel call of the synchronous run's frame
+    ``RECORD_FRAME`` to its twin and times it (:func:`time_site`). Returns
+    the numbers."""
+    import torch
+    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+    from ros_gpu_depthmap_fusion_tpu_torch.ops import mask_ops, voxelize
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
+        compact, flying_pixels, fused_unproject_rle, segreduce)
+    from ros_gpu_depthmap_fusion_tpu_torch.parallel import (
+        STREAM_AXIS, make_mesh, sharded)
+    from ros_gpu_depthmap_fusion_tpu_torch.parallel.engine import (
+        ShardedFusionEngine)
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline import engine as engmod
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import ba
+    mesh = make_mesh(*shape, device=torch.device("cuda",
+                                                 rank % opts["cards"]))
+    kmods = {"segreduce": segreduce, "flying_pixels": flying_pixels,
+             "compact": compact, "fused_unproject_rle": fused_unproject_rle}
+    record_mods = [("segreduce", voxelize, "segreduce"),
+                   ("flying_pixels", sharded, "filter_flying_pixels"),
+                   ("compact", mask_ops, "compact_rows")]
+    cfg = publish_config(FusionConfig, voxel_mean_mode="packed")
+    scene = Scene(transforms, seed=0)
+    intr = PinholeIntrinsics.default_for(W, H)
+    res = dict(launches={}, ms={}, digests={})
+    calls = {}
+
+    def drive(eng, record=False):
+        """``frames`` frames through ``eng`` (then ``flush()`` when
+        pipelined), recording the kernel calls of frame ``RECORD_FRAME``
+        into ``calls`` if ``record``: the outputs, and the wall ms a frame
+        of frames 1.. ending with a synchronize."""
+        outs = []
+        for f in range(frames):
+            if f == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            box = []
+
+            def run(f=f):
+                box.append(eng.process(scene.stage(eng, intr, f)))
+            if record and f == RECORD_FRAME:
+                calls.update(record_calls(record_mods, run))
+            else:
+                run()
+            if box[0] is not None:
+                outs.append(box[0])
+        if eng.pipeline_depth:
+            outs.append(eng.flush())
+        torch.cuda.synchronize()
+        return outs, (time.perf_counter() - t0) * 1e3 / (frames - 1)
+
+    single = None
+    if opts["with_single"]:
+        eng = engmod.FusionEngine(cfg, mesh.device, enable_mapping=True)
+        s_outs, res["ms"]["single"] = drive(eng)
+        single = [dict(occ=o.occupancy_u8.cpu().numpy(),
+                       raw=o.raw_points[:int(o.raw_count)].cpu().numpy(),
+                       fused=o.fused_points[:int(o.fused_count)].cpu()
+                       .numpy()) for o in s_outs]
+        single_map = eng.segment_and_track(s_outs[-1])
+        eng.close()
+        del eng, s_outs
+    sx = f"{shape[0]}x{shape[1]}"
+    for depth in ((0, 1) if opts["with_single"] else (0,)):
+        path = f"sharded_{sx}" + ("_pipelined" if depth else "")
+        eng = ShardedFusionEngine(cfg, mesh, pipeline_depth=depth,
+                                  enable_mapping=True)
+        zero_counts(kmods)
+        outs, res["ms"][path] = drive(eng, record=depth == 0)
+        res["launches"][path] = check_launches(kmods, EXPECTED[path], frames,
+                                               path)
+        if len(outs) != frames or eng._last_bits <= 0:
+            raise AssertionError(f"{path}: {len(outs)} outputs, last dpcm "
+                                 f"width {eng._last_bits}")
+        digests = []
+        for f, o in enumerate(outs):
+            v = dict(occ=eng.occupancy_host(o),
+                     bits=eng.occupancy_grid_from_bits(o).reshape(-1),
+                     raw=eng.raw_points_host(o),
+                     fused=eng.fused_points_host(o))
+            if not np.array_equal(v["bits"], (v["occ"] > 0)
+                                  .astype(np.uint8)):
+                raise AssertionError(f"{path} frame {f}: occupancy_grid_"
+                                     "from_bits != (occupancy > 0)")
+            if single is not None:
+                for k in ("occ", "raw", "fused"):
+                    if not np.array_equal(v[k], single[f][k]):
+                        raise AssertionError(f"{path} frame {f}: {k} != "
+                                             "the single engine's")
+            digests.append((sha(v["occ"]), len(v["raw"]),
+                            sorted_rows_sha(torch, v["raw"]),
+                            len(v["fused"]), sha(v["fused"])))
+        res["digests"][path] = digests
+        mapped = eng.segment_and_track(outs[-1])
+        if single is not None:
+            same(mapped, single_map, f"{path}: segment_and_track vs the "
+                 "single engine's")
+        res["mapping"] = mapped
+        res["raw_last"], res["fused_last"] = digests[-1][1], digests[-1][3]
+        eng.close()
+        del eng, outs
+    if opts["window"] is not None:
+        res["ba"] = sharded_ba(torch, ba, mesh, STREAM_AXIS, opts["window"],
+                               f"sharded {sx}")
+    if opts["gpu"] is not None and rank == 0:
+        path = f"sharded_{sx}"
+        res["sites"] = {}
+        for name, wrapper in kernel_wrappers().items():
+            if len(calls.get(name, ())) != EXPECTED[path][name]:
+                raise AssertionError(f"{name} on {path}: recorded "
+                                     f"{len(calls.get(name, ()))} calls")
+            res["sites"][name] = time_site(
+                torch, name, calls[name], wrapper,
+                f"{path} rank 0, frame {RECORD_FRAME}",
+                res["launches"][path][name] / frames, opts["gpu"])
+    return res
+
+
+def sharded_ba(torch, ba, mesh, axis, window, what):
+    """``build_sharded_ba_step`` (``BA_ITERS`` iterations) on this rank's
+    landmark shard of ``window`` over ``axis``, held to ``solve_window``'s
+    iterations on the whole window on this rank's card by
+    :func:`ba_agree` (tie-aware: poses within 1e-4 m and 1e-4 rad where
+    every accept decision agrees), the last chi2 within 1e-3 relative
+    (``tests/test_slam.py:175-211``); timed with CUDA events (every rank of
+    the axis calls it together), ``solve_window`` too on a one-rank mesh.
+    Returns the numbers."""
+    shards, lps, ops = shard_window(window, mesh.shape[axis])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
+    step = ba.build_sharded_ba_step(mesh, axis, len(window[0]), lps, ops,
+                                    iterations=BA_ITERS)
+    sh = [t(a) for a in shards[mesh.stream_id if axis == "stream"
+                               else mesh.space_id]]
+    poses0 = t(window[0])
+    poses, _, chi2s, cands = step(poses0, *sh)
+    whole = ba.BAProblem(*map(t, window))
+    ref = ba._iterate(whole, BA_ITERS, 1e-4)
+    out = ba_agree((poses, chi2s, cands), (ref[0], ref[2], ref[3]),
+                   names=(what, "solve_window"))
+    last = (float(chi2s[-1]), float(ref[2][-1]))
+    if abs(last[0] - last[1]) > 1e-3 * last[1]:
+        raise AssertionError(f"{what} BA: last chi2 {last}")
+    out.update(chi2=(float(chi2s[0]), float(chi2s[-1])),
+               window=tuple(len(a) for a in window[:3]),
+               sharded_ms=cuda_ms(torch, lambda: step(poses0, *sh), reps=5,
+                                  warm=1))
+    if mesh.size == 1:
+        out["solve_ms"] = cuda_ms(
+            torch, lambda: ba.solve_window(whole, BA_ITERS), reps=5, warm=1)
+    return out
+
+
+def check_world(results, path, one):
+    """Every rank of a world: each frame's digests and its
+    ``segment_and_track`` equal to the 1 x 1 run ``one``'s."""
+    for r, res in enumerate(results):
+        if res["digests"][path] != one["digests"]["sharded_1x1"]:
+            raise AssertionError(f"{path} rank {r}: a frame differs from "
+                                 "the 1x1 run")
+        same(res["mapping"], one["mapping"], f"{path} rank {r}: "
+             "segment_and_track vs 1x1")
+
+
+def sharded_phase(gpu, window):
+    """The distributed engine on the card at full width: the publish
+    configuration at "packed", 8 cameras at 848x480, on one rank over NCCL
+    (mesh 1 x 1; synchronous and pipelined, every frame held to the single
+    engine) and on four ranks sharing the card over gloo (mesh stream 2 x
+    space 2, 4 cameras a rank; every frame's digests equal to the 1 x 1
+    run's); the sharded BA on ``window`` (a BA window of the SLAM run) in
+    both; rank 0 of each world times its kernel call sites. The kernels
+    and the native library are built before any rank starts. Returns
+    launches by path and the call sites' numbers by path."""
+    from ros_gpu_depthmap_fusion_tpu_torch.parallel import spawn
+    # one host: NCCL's bootstrap and gloo's pairs on the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    opts = dict(cards=1, window=window, gpu=gpu)
+    t0 = time.perf_counter()
+    # each rank's host threads: spawn's default, the cores split over the
+    # ranks
+    one = spawn(sharded_rank, 1, "nccl", timeout=120, join_timeout=400,
+                args=((1, 1), SHARDED_FRAMES, dict(opts, with_single=True)))[0]
+    t1 = time.perf_counter()
+    four = spawn(sharded_rank, 4, "gloo", timeout=120, join_timeout=400,
+                 args=((2, 2), SHARDED_FRAMES,
+                       dict(opts, with_single=False)))
+    t2 = time.perf_counter()
+    if one["digests"]["sharded_1x1_pipelined"] != \
+            one["digests"]["sharded_1x1"]:
+        raise AssertionError("sharded 1x1: pipelined digests differ")
+    check_world(four, "sharded_2x2", one)
+    two = four[0]
+    launches = dict(one["launches"], **two["launches"])
+    ms = dict(one["ms"], **two["ms"])
+    b1, b2 = one["ba"], two["ba"]
+    print(f"[sharded] publish config at packed (dpcm link, 8 x 848x480, "
+          f"3,360,000 cells), {SHARDED_FRAMES} frames: mesh 1x1 on NCCL "
+          f"(local capacity 3,354,624) and mesh stream 2 x space 2 on gloo, "
+          f"4 ranks sharing cuda:0 (4 cameras a rank, local capacity "
+          f"1,677,312) | ms/frame (frames 1.., ends with a synchronize): "
+          f"single engine {ms['single']:.2f}, sharded 1x1 "
+          f"{ms['sharded_1x1']:.2f}, 1x1 pipelined "
+          f"{ms['sharded_1x1_pipelined']:.2f} (same process); 2x2 "
+          f"{ms['sharded_2x2']:.2f} (rank 0) | every 1x1 frame == the "
+          f"single engine (occupancy, raw rows in order, fused rows), "
+          f"bits == occupancy > 0, pipelined == sync; every 2x2 frame's "
+          f"digests == 1x1's on all 4 ranks | raw {one['raw_last']}, fused "
+          f"{one['fused_last']} (last frame) | segment_and_track == single "
+          f"({len(one['mapping'].objects)} objects, "
+          f"{len(one['mapping'].tracks)} tracks), 2x2 == 1x1 | BA window "
+          f"of the SLAM run {b1['window']} (poses, landmarks, observations),"
+          f" {BA_ITERS} iterations: sharded 1x1 vs solve_window accepted "
+          f"{b1['ba_accepts'][0]} / {b1['ba_accepts'][1]} (ties "
+          f"{b1['ba_ties']}), poses within {b1['ba_t_err']:.1e} m / "
+          f"{b1['ba_r_err']:.1e} rad; 2x2 over stream accepted "
+          f"{b2['ba_accepts'][0]} (ties {b2['ba_ties']}), within "
+          f"{b2['ba_t_err']:.1e} m / {b2['ba_r_err']:.1e} rad; chi2 "
+          f"{b1['chi2'][0]:.4g} -> {b1['chi2'][1]:.4g}; call ms sharded "
+          f"1x1 {b1['sharded_ms']:.3f}, 2x2 {b2['sharded_ms']:.3f} (4 "
+          f"processes on one card, gloo through host memory), solve_window "
+          f"{b1['solve_ms']:.3f} | launches {launches} | phase "
+          f"{t2 - t0:.1f} s (1x1 world {t1 - t0:.1f} s, 2x2 {t2 - t1:.1f} "
+          f"s, rank start-up and rank 0's kernel timing included) | {gpu}",
+          flush=True)
+    return launches, {"sharded_1x1": one["sites"],
+                      "sharded_2x2": two["sites"]}
+
+
+def sharded_nccl_main():
+    """``--sharded-nccl``: the distributed engine over NCCL, one rank a
+    card, on four cards (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        raise SystemExit("chip_smoke.py --sharded-nccl: needs four CUDA "
+                         "devices")
+    sys.path.insert(0, HERE)
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import _build
+    from ros_gpu_depthmap_fusion_tpu_torch.parallel import spawn
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+    gpu = gpu_line()
+    print(f"[env] gpu: {gpu} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}", flush=True)
+    _build.build_info()
+    native.require()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    opts = dict(cards=4, window=None, gpu=None, with_single=False)
+    t0 = time.perf_counter()
+    one = spawn(sharded_rank, 1, "nccl", timeout=120, join_timeout=300,
+                args=((1, 1), SHARDED_FRAMES, dict(opts, with_single=True)))[0]
+    times, launches, ms = [time.perf_counter() - t0], dict(one["launches"]), {}
+    for shape in ((2, 2), (4, 1)):
+        t0 = time.perf_counter()
+        path = f"sharded_{shape[0]}x{shape[1]}"
+        world = spawn(sharded_rank, 4, "nccl", timeout=120, join_timeout=300,
+                      args=(shape, SHARDED_FRAMES, opts))
+        check_world(world, path, one)
+        launches.update(world[0]["launches"])
+        ms[path] = [round(w["ms"][path], 2) for w in world]
+        times.append(time.perf_counter() - t0)
+    print(f"[sharded nccl] publish config at packed, {SHARDED_FRAMES} "
+          f"frames, one rank a card over NCCL: mesh 1x1 == the single "
+          f"engine every frame; meshes 2x2 and 4x1 on cuda:0-3, every "
+          f"frame's digests and segment_and_track == 1x1's on every rank | "
+          f"ms/frame (frames 1.., ends with a synchronize): single "
+          f"{one['ms']['single']:.2f}, 1x1 {one['ms']['sharded_1x1']:.2f}, "
+          f"by rank {ms} | launches {launches} | worlds "
+          f"{', '.join(f'{x:.1f}' for x in times)} s (rank start-up "
+          f"included) | {gpu}", flush=True)
+    print(gpu)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 def time_site(torch, name, site_calls, wrapper, what, per_frame, gpu):
@@ -1369,9 +1757,10 @@ def time_site(torch, name, site_calls, wrapper, what, per_frame, gpu):
     library = None
     if name == "compact":
         # one PyTorch call computes the same rows: boolean indexing (its
-        # nonzero syncs the host; device time counts no gaps)
-        words, mask = site_calls[0][0][:2]
-        library = device_ms(torch, lambda: words[mask])
+        # nonzero syncs the host; device time counts no gaps), per frame
+        # over the same calls
+        library = sum(device_ms(torch, lambda: a[0][a[1]])
+                      for a, _, _ in site_calls)
     print(f"[kernel] {name} on {'+'.join(shapes)} ({what}), per frame "
           f"({len(site_calls)} call(s), launches_per_frame {per_frame:g}): "
           f"max_abs_err {max(errs)} | device ms {tot['ms']:.4f} (per call "
@@ -1405,10 +1794,7 @@ def main():
 
     kmods = {"segreduce": segreduce, "flying_pixels": flying_pixels,
              "compact": compact, "fused_unproject_rle": fused_unproject_rle}
-    wrappers = {"segreduce": (segreduce.segreduce, segreduce.segreduce_plain),
-                "flying_pixels": (flying_pixels.filter_flying_pixels,
-                                  flying_pixels.filter_flying_pixels_plain),
-                "compact": (compact.compact_rows, compact.compact_plain)}
+    wrappers = kernel_wrappers()
 
     # -- 1. environment --
     gpu = gpu_line()
@@ -1553,7 +1939,13 @@ def main():
     mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu)
 
     # -- 7. the SLAM path: the TUM runner on the hard synthetic sequence --
-    by_path.update(tum_phase(torch, engmod, kmods, gpu))
+    tum_launches, window = tum_phase(torch, engmod, kmods, gpu)
+    by_path.update(tum_launches)
+
+    # -- 7b. the distributed engine: 1 rank on NCCL, 4 ranks on gloo --
+    torch.cuda.empty_cache()
+    sharded_launches, sharded_sites = sharded_phase(gpu, window)
+    by_path.update(sharded_launches)
 
     # -- 8. each engine kernel against its twin at each call site: the
     #    recorded link frame, the publish frame (the raw cloud's compaction,
@@ -1582,6 +1974,9 @@ def main():
             torch, name, site_calls[name], wrappers[name],
             f"{site}, frame {RECORD_FRAME}",
             by_path[path][name] / PUBLISH_FRAMES, gpu)
+    for path, per_kernel in sharded_sites.items():
+        for name, r in per_kernel.items():
+            sites[name][path] = r
 
     # the publish step of each mode, whole, from its tapped state: device
     # ms and device activities a step, and CUDA events around one step
@@ -1689,7 +2084,9 @@ def main():
              "publish_packed": PUBLISH_FRAMES, "publish_exact": 2,
              "publish_occupied": 2, "hetero": HETERO_FRAMES,
              "hetero_sync": HETERO_FRAMES, "tum": TUM_FRAMES,
-             "tum_gt": TUM_GT_FRAMES}
+             "tum_gt": TUM_GT_FRAMES, "sharded_1x1": SHARDED_FRAMES,
+             "sharded_1x1_pipelined": SHARDED_FRAMES,
+             "sharded_2x2": SHARDED_FRAMES}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     launches_per_frame=per_frame[name],
@@ -1717,4 +2114,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--sharded-nccl"]:
+        sharded_nccl_main()
+    elif sys.argv[1:]:
+        raise SystemExit(f"chip_smoke.py: unknown arguments {sys.argv[1:]}")
+    else:
+        main()

@@ -4,7 +4,7 @@ H100 (Hopper, ``sm_90a``).
 The JAX package is the reference; this package is its counterpart module
 for module (``core/``, ``ops/``, ``ops/kernels/`` in place of
 ``ops/pallas/``, ``state/``, ``pipeline/``, ``mapping/``, ``slam/``,
-``utils/``), held to it by the
+``parallel/``, ``utils/``), held to it by the
 ``tests/test_torch_*.py`` parity tests. It imports ``torch`` and never
 ``jax``. Every Pallas kernel on the ported path is a hand-written CUDA
 kernel under ``csrc/``, compiled with ``nvcc`` at first use; each has a
@@ -28,8 +28,10 @@ assembly, tracking; ``AsyncMappingWorker``); the streaming component
 (``FusionComponent``); and the SLAM path (``slam/``: features, RANSAC,
 windowed BA, odometry, pose graph, loop closure; ``pipeline/tum_runner.py``
 with ``pipeline/datasets.py``) with ``utils/`` png, checkpoint, profiling
-and viz. What the JAX package refuses raises ``ValueError`` naming the
-field.
+and viz; and the distributed engine (``parallel/``: a ``(stream, space)``
+mesh of ranks on ``torch.distributed``, the sharded step,
+``ShardedFusionEngine``; ``slam.ba.build_sharded_ba_step``). What the JAX
+package refuses raises ``ValueError`` naming the field.
 """
 
 import torch

@@ -40,6 +40,11 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The ``[4, 4]`` identity transform on ``device``."""
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def transform_points(points: torch.Tensor, tf: torch.Tensor) -> torch.Tensor:
     """Apply one ``[4, 4]`` transform to ``[..., 4]`` points."""
     cols = [points[..., j:j + 1] * tf[:, j] for j in range(4)]
@@ -72,6 +77,11 @@ def transform_points_indirect(points: torch.Tensor,
     for j in range(1, 4):
         acc = fma(m[:, :, j], points[:, j:j + 1], acc)
     return torch.where(mask[:, None], acc, points)
+
+
+def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Standard composition: ``compose(a, b) @ p == a @ (b @ p)``."""
+    return a @ b
 
 
 def compose_seq_transforms(tf_frame_move: torch.Tensor,

@@ -210,6 +210,19 @@ class MappingPipeline:
         return self.process(torch.from_numpy(occ.reshape(-1)), dt,
                             with_contours)
 
+    def process_host_grid(self, occ_zyx: np.ndarray,
+                          dt: float | None = None,
+                          with_contours: bool = True) -> MappingResult:
+        """Mapping step from a host-assembled ``[Z, Y, X]`` binarized
+        occupancy (the sharded engine's assembly of its per-block bitmaps,
+        :meth:`parallel.engine.ShardedFusionEngine.segment_and_track`):
+        the native host segmentation whatever the backend (the device
+        backend would copy the grid back to the device). Raises without
+        the native library."""
+        native.require()
+        res = self._segment_host(np.ascontiguousarray(occ_zyx, np.uint8))
+        return self._finish(res, dt, with_contours)
+
     def process(self, occupancy_u8: torch.Tensor,
                 dt: float | None = None,
                 with_contours: bool = True) -> MappingResult:

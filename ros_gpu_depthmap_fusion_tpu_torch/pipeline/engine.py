@@ -55,7 +55,8 @@ from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
 from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (
     MappingPipeline, MappingResult)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.depth_codec import (
-    B_BUCKETS, decode_depth, decode_depth_p4, decode_depth_temporal)
+    B_BUCKETS, EncodedDepth, decode_depth, decode_depth_p4,
+    decode_depth_temporal)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels.flying_pixels import (
     filter_flying_pixels, filter_flying_pixels_plain)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.mask_ops import (
@@ -230,6 +231,60 @@ def state_to_numpy(state: EngineState) -> dict:
     d["frame_index"] = state.frame_index.cpu().numpy()
     d["prev_depth_q"] = state.prev_depth_q.cpu().numpy().astype(np.uint16)
     return d
+
+
+def _to(x, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy or tensor) on ``device``. 16- and 32-bit
+    unsigned words travel as their signed bits (torch has no arithmetic on
+    them); u16 values widen to int32 on the device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, dtype=dtype or x.dtype, non_blocking=True)
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    if a.dtype == np.uint16:
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return t.to(device, non_blocking=True).to(torch.int32) & 0xFFFF
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device, dtype=dtype or t.dtype, non_blocking=True)
+
+
+def inputs_to_device(inp: FrameInputs, device, cams: slice = slice(None),
+                     depth_bits=None) -> FrameInputs:
+    """:class:`FrameInputs` of host arrays (numpy or tensors) on
+    ``device``, for :func:`fusion_step` on a homogeneous rig: the cameras
+    ``cams`` of the depth (raw, or for an I-frame ``depth_bits`` the
+    :class:`EncodedDepth` rows, its exception arrays whole), intrinsics
+    and transforms; everything else whole."""
+    if depth_bits is None:
+        depth = _to(inp.depth[cams], device)
+    else:
+        d = inp.depth
+        depth = EncodedDepth(
+            words=_to(d.words[cams], device),
+            row_first=_to(d.row_first[cams], device),
+            exc_idx=_to(d.exc_idx, device, torch.int32),
+            exc_zz=_to(d.exc_zz, device, torch.int32),
+            exc_count=_to(d.exc_count, device, torch.int32))
+    f32, i32 = torch.float32, torch.int32
+    sb = inp.seq_batch
+    return FrameInputs(
+        depth=depth,
+        intrinsics=_to(inp.intrinsics[cams], device, f32),
+        tf_world=_to(inp.tf_world[cams], device, f32),
+        tf_crop=_to(inp.tf_crop[cams], device, f32),
+        seq_batch=SequenceBatch(*(
+            _to(x, device, f32 if k in ("points", "seq_tf_move") else i32)
+            for k, x in sb._asdict().items())),
+        tf_world_move=_to(inp.tf_world_move, device, f32),
+        tf_crop_move=_to(inp.tf_crop_move, device, f32),
+        now_sec=_to(inp.now_sec, device, i32),
+        now_nsec=_to(inp.now_nsec, device, i32),
+        roll_min_sec=_to(inp.roll_min_sec, device, i32),
+        roll_min_nsec=_to(inp.roll_min_nsec, device, i32),
+        fp_threshold=_to(inp.fp_threshold, device, f32),
+        fp_max_distance=_to(inp.fp_max_distance, device, f32),
+        ps_threshold=_to(inp.ps_threshold, device, f32))
 
 
 def decode_link(state: EngineState, depth, depth_bits, cfg: FusionConfig):

@@ -24,7 +24,12 @@ Where the port departs from the JAX code's letter:
   host sync; a singular system gives non-finite steps, which the chi2
   test rejects, as JAX's ``solve`` returns them).
 
-The distributed step (JAX ``build_sharded_ba_step``) is not ported yet.
+Distribution (:func:`build_sharded_ba_step`): landmarks and their
+observations shard over one axis of a :class:`parallel.mesh.Mesh`; each
+rank reduces its contribution to the ``[6M, 6M]`` reduced camera system,
+the contributions and chi2 are summed over the axis, and every rank solves
+the small dense system itself while back-substituting only its own
+landmarks.
 """
 
 from __future__ import annotations
@@ -124,25 +129,33 @@ def _reduce_local(poses, landmarks, obs_pose, obs_lm, obs_pt, obs_valid,
     return hpp, b_p, coupling, counts, b_l, _chi2(res, w)
 
 
-def _solve_reduced(hpp, b_p, coupling, counts, b_l, damping,
-                   fix_first: bool = True):
-    """Schur-complement solve. Returns (delta_pose [M, 6],
-    delta_lm [L, 3])."""
-    m = hpp.shape[0]
-    l = counts.shape[0]
-    dev = hpp.device
+def _schur_terms(coupling, counts, b_l, damping):
+    """A window's (or a landmark shard's) Schur-complement terms: (inv
+    H_ll [L], W [L, 6M, 3], its contribution ``- sum_j W_j inv_hll_j
+    W_j^T`` to the reduced system [6M, 6M], and ``- sum_j W_j inv_hll_j
+    b_l_j`` to its right-hand side [6M])."""
+    m, l = coupling.shape[1], counts.shape[0]
     inv_hll = 1.0 / (counts + damping)              # [L] (H_ll = c*I + lam)
     # pose-major flatten: row = i * 6 + a
     w_flat = coupling.reshape(l, 6 * m, 3)
-    # S = Hpp_blockdiag + lambda I - sum_j W_j inv_hll_j W_j^T
+    ws = w_flat * inv_hll[:, None, None]
+    return (inv_hll, w_flat, -torch.einsum("lak,lbk->ab", ws, w_flat),
+            -torch.einsum("lak,lk->a", ws, b_l))
+
+
+def _solve_poses(hpp, b_p, s_schur, b_schur, damping,
+                 fix_first: bool = True):
+    """The pose step [M, 6] of the reduced system ``S = Hpp_blockdiag +
+    lambda I + s_schur``, ``b = b_p + b_schur``."""
+    m = hpp.shape[0]
+    dev = hpp.device
     s4 = torch.zeros((m, 6, m, 6), device=dev)
     ar = torch.arange(m, device=dev)
     s4[ar, :, ar, :] = hpp
     s_full = s4.reshape(6 * m, 6 * m)
     s_full = s_full + damping * torch.eye(6 * m, device=dev)
-    ws = w_flat * inv_hll[:, None, None]
-    s_full = s_full - torch.einsum("lak,lbk->ab", ws, w_flat)
-    b_red = b_p.reshape(-1) - torch.einsum("lak,lk->a", ws, b_l)
+    s_full = s_full + s_schur
+    b_red = b_p.reshape(-1) + b_schur
 
     if fix_first:
         # gauge fix: pin pose 0 (identity rows/cols, zero rhs)
@@ -152,11 +165,7 @@ def _solve_reduced(hpp, b_p, coupling, counts, b_l, damping,
                   + torch.diag(1.0 - mask))
         b_red = b_red * mask
 
-    delta_p = torch.linalg.solve_ex(s_full, b_red)[0].reshape(m, 6)
-    # back-substitute landmarks: dl = inv_hll (b_l - W^T dp)
-    wtdp = torch.einsum("lak,a->lk", w_flat, delta_p.reshape(-1))
-    delta_l = inv_hll[:, None] * (b_l - wtdp)
-    return delta_p, delta_l
+    return torch.linalg.solve_ex(s_full, b_red)[0].reshape(m, 6)
 
 
 def _apply_delta(poses, landmarks, delta_p, delta_l):
@@ -181,11 +190,16 @@ def _check_indices(problem: BAProblem) -> None:
                          f"window's {m} poses / {l} landmarks")
 
 
-def _iterate(problem: BAProblem, iterations: int,
-                        damping: float):
+def _iterate(problem: BAProblem, iterations: int, damping: float,
+             psum=None):
     """The iterations of :func:`solve_window`. Returns (poses, landmarks,
     chi2 [iters] before each step, chi2 [iters] of each step's candidate);
-    a step is accepted where its candidate's chi2 is not larger."""
+    a step is accepted where its candidate's chi2 is not larger.
+
+    ``psum(*tensors)`` (a landmark shard's BA, :func:`build_sharded_ba_step`)
+    sums the reduced system's parts and the chi2s over the shards before
+    each solve and each accept decision, so every shard takes the same
+    step."""
     _check_indices(problem)
     m = problem.poses.shape[0]
     l = problem.landmarks.shape[0]
@@ -199,13 +213,23 @@ def _iterate(problem: BAProblem, iterations: int,
         hpp, b_p, coupling, counts, b_l, chi2 = _reduce_local(
             poses, landmarks, problem.obs_pose, problem.obs_lm,
             problem.obs_pt, problem.obs_valid, m, l)
-        dp, dl = _solve_reduced(hpp, b_p, coupling, counts, b_l, damp)
-        cand_p, cand_l = _apply_delta(poses, landmarks, dp, dl)
+        inv_hll, w_flat, s_schur, b_schur = _schur_terms(coupling, counts,
+                                                         b_l, damp)
+        if psum is not None:
+            hpp, b_p, s_schur, b_schur, chi2 = psum(hpp, b_p, s_schur,
+                                                    b_schur, chi2)
+        dp = _solve_poses(hpp, b_p, s_schur, b_schur, damp)
+        # back-substitute landmarks: dl = inv_hll (b_l - W^T dp)
+        wtdp = torch.einsum("lak,a->lk", w_flat, dp.reshape(-1))
+        cand_p, cand_l = _apply_delta(poses, landmarks, dp,
+                                      inv_hll[:, None] * (b_l - wtdp))
         res, _, _, w = _residuals_and_blocks(
             cand_p, cand_l, problem.obs_pose, problem.obs_lm,
             problem.obs_pt, problem.obs_valid)
         w = _huber_w(res, w, problem.obs_pt[:, 2])
         cand = _chi2(res, w)
+        if psum is not None:
+            (cand,) = psum(cand)
         accept = cand <= chi2
         poses = torch.where(accept, cand_p, poses)
         landmarks = torch.where(accept, cand_l, landmarks)
@@ -230,3 +254,48 @@ def solve_window(problem: BAProblem, iterations: int = 8,
     poses, landmarks, chi2s, _ = _iterate(problem, iterations,
                                                      damping)
     return problem._replace(poses=poses, landmarks=landmarks), chi2s
+
+
+def build_sharded_ba_step(mesh, axis: str, num_poses: int,
+                          landmarks_per_shard: int, obs_per_shard: int,
+                          iterations: int = 8, damping: float = 1e-4):
+    """Distributed BA over ``axis`` of ``mesh`` (a
+    :class:`parallel.mesh.Mesh`; every rank of the axis calls the step
+    together). Landmarks and their observations are sharded over the
+    axis, poses replicated.
+
+    Returns ``step(poses [M, 4, 4], landmarks [Ls, 3], obs_pose [Os],
+    obs_lm [Os], obs_pt [Os, 3], obs_valid [Os])`` on ``mesh.device``,
+    with this rank's landmarks and observations (``obs_lm`` local to the
+    shard), giving ``(poses, this shard's landmarks, chi2 [iterations],
+    candidate chi2 [iterations])``: the JAX step's three outputs and, as
+    :func:`_iterate` returns them, each step's summed candidate chi2 (a
+    step was accepted where it is not larger). The five parts of the reduced system (Hpp, b_p, the Schur terms and chi2)
+    are summed in one ``all_reduce`` on the axis' group, the candidate's
+    chi2 in another; float32 throughout (the package keeps TF32 off).
+    """
+    from ros_gpu_depthmap_fusion_tpu_torch.parallel.mesh import all_reduce
+    import torch.distributed as dist
+
+    def psum(*parts):
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        flat = all_reduce(flat, dist.ReduceOp.SUM, mesh, axis)
+        out, off = [], 0
+        for p in parts:
+            out.append(flat[off:off + p.numel()].reshape(p.shape))
+            off += p.numel()
+        return out
+
+    def step(poses, landmarks, obs_pose, obs_lm, obs_pt, obs_valid):
+        shapes = ((poses.shape[0], num_poses, "poses"),
+                  (landmarks.shape[0], landmarks_per_shard, "landmarks"),
+                  (obs_pose.shape[0], obs_per_shard, "observations"))
+        for got, want, what in shapes:
+            if got != want:
+                raise ValueError(f"build_sharded_ba_step: {got} {what} on "
+                                 f"this shard, built for {want}")
+        return _iterate(BAProblem(poses, landmarks, obs_pose, obs_lm,
+                                  obs_pt, obs_valid), iterations, damping,
+                        psum)
+
+    return step

@@ -286,3 +286,22 @@ def gather_selection(rb: RollBuffer,
     pc = torch.where(m4, transforms.transform_points_indirect(
         pts, tfs_crop, tf_idx, msk), 0.0)
     return pw, pc, msk, sel.point_count
+
+
+def dump(rb: RollBuffer) -> dict:
+    """Every rollbuffer field on the host as numpy, for inspection (the
+    reference's debug inspector ``checkAllPointSequenceBuffers``,
+    gpu_depthmap_fusion.cpp:859-926): the live extents as ints, the
+    fields sliced to them, and the full-capacity point arrays under
+    ``*_raw``. Waits for the device."""
+    host = {f: getattr(rb, f).cpu().numpy() for f in RollBuffer._fields}
+    n_pts, n_seqs = int(host["num_points"]), int(host["num_seqs"])
+    out = {"num_points": n_pts, "num_seqs": n_seqs}
+    for f in ("points", "mask", "seq_idx"):
+        out[f] = host[f][:n_pts]
+    for f in ("seq_sec", "seq_nsec", "seq_start", "seq_count",
+              "seq_tf_move"):
+        out[f] = host[f][:n_seqs]
+    for f in ("points", "mask", "seq_idx"):
+        out[f + "_raw"] = host[f]
+    return out

@@ -924,3 +924,97 @@ def test_slam_modules_keep_tensors_on_their_device(dev):
         assert all(t.device.type == "cuda" for t in kf.kps)
     assert all(t.device.type == "cuda" for t in prob)
     assert LoopCloser(dev).generator.device.type == "cuda"
+
+
+def _sharded_card_rank(rank, shape):
+    """One rank of a small sharded engine on ``cuda:0`` (the publish-like
+    small rig, raw link, "packed"), 3 frames: its host views and the
+    launches of each kernel."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
+        compact, flying_pixels, segreduce)
+    from ros_gpu_depthmap_fusion_tpu_torch.parallel import make_mesh
+    from ros_gpu_depthmap_fusion_tpu_torch.parallel.engine import (
+        ShardedFusionEngine)
+    mesh = make_mesh(*shape, device=torch.device("cuda", 0))
+    eng = ShardedFusionEngine(_sharded_cfg(), mesh)
+    mods = (segreduce, flying_pixels, compact)
+    for m in mods:
+        m.launches = 0
+    views = []
+    for f, (depth, intr, tfs, arc) in enumerate(_sharded_frames()):
+        for i in range(depth.shape[0]):
+            eng.add_depthmap(i, depth[i], intr, tfs[i], tfs[i])
+        eng.add_point_sequence(arc, sec=5, nsec=int(f * 33e6),
+                               tf_move=np.eye(4, dtype=np.float32))
+        out = eng.process(5.0 + f / 30.0)
+        views.append((eng.occupancy_host(out), eng.raw_points_host(out),
+                      eng.fused_points_host(out)))
+    return views, [m.launches for m in mods]
+
+
+def _sharded_cfg():
+    from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+    return FusionConfig(
+        num_depth_streams=4, depth_height=48, depth_width=64,
+        num_point_sequences=1,
+        crop_min=(-6, -6, 0), crop_max=(6, 6, 2.5),
+        voxel_min=(-6, -6, 0), voxel_max=(6, 6, 2.5),
+        voxel_size=(0.25, 0.25, 0.25), voxel_occupancy_lifetime=5,
+        rollbuffer_point_capacity=512, rollbuffer_seq_capacity=16,
+        max_points_per_sequence=256, depth_link_codec="none",
+        voxel_mean_mode="packed")
+
+
+def _sharded_frames():
+    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    rng = np.random.default_rng(7)
+    u = np.arange(64)[None, :] + np.zeros((48, 1))
+    tfs = [transforms.make_se3(
+        transforms.rot_z(i * np.pi / 2 + np.pi) @ transforms.rot_x(-np.pi / 2),
+        np.array([3 * np.cos(i * np.pi / 2), 3 * np.sin(i * np.pi / 2), 1.5]))
+        for i in range(4)]
+    frames = []
+    for f in range(3):
+        d = np.stack([(2000 + 10 * u + 50 * i + rng.normal(0, 3, u.shape))
+                      .astype(np.uint16) for i in range(4)])
+        t = np.linspace(0, np.pi, 64)
+        arc = np.stack([2 * np.cos(t + f * 0.1), 2 * np.sin(t + f * 0.1),
+                        1 + 0 * t], axis=-1).astype(np.float32)
+        frames.append((d, PinholeIntrinsics.default_for(64, 48), tfs, arc))
+    return frames
+
+
+@pytest.mark.parametrize("backend,shape", [("nccl", (1, 1)),
+                                           ("gloo", (2, 2))])
+def test_sharded_engine_on_card_equals_cpu_single(dev, tmp_path, backend,
+                                                  shape):
+    """The sharded engine on the card (one rank on NCCL; four ranks
+    sharing the card on gloo) equal frame by frame to the single engine on
+    the CPU, each rank launching segreduce once, flying_pixels once and
+    compact four times a frame."""
+    from ros_gpu_depthmap_fusion_tpu_torch.parallel import spawn
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        FusionEngine)
+    n = shape[0] * shape[1]
+    res = spawn(_sharded_card_rank, n, backend,
+                init_method=f"file://{tmp_path / 'store'}", timeout=60,
+                join_timeout=240, args=(shape,))
+    single = FusionEngine(_sharded_cfg(), "cpu")
+    for f, (depth, intr, tfs, arc) in enumerate(_sharded_frames()):
+        for i in range(depth.shape[0]):
+            single.add_depthmap(i, depth[i], intr, tfs[i], tfs[i])
+        single.add_point_sequence(arc, sec=5, nsec=int(f * 33e6),
+                                  tf_move=np.eye(4, dtype=np.float32))
+        out = single.process(5.0 + f / 30.0)
+        raw = out.raw_points.numpy()[:int(out.raw_count)]
+        for views, launches in res:
+            occ, s_raw, fused = views[f]
+            np.testing.assert_array_equal(occ, out.occupancy_u8.numpy())
+            np.testing.assert_array_equal(
+                s_raw[np.lexsort(s_raw.T)], raw[np.lexsort(raw.T)])
+            np.testing.assert_array_equal(
+                fused, out.fused_points.numpy()[:int(out.fused_count)])
+            assert launches == [3, 3, 12]
+    assert int(out.fused_count) > 0

@@ -203,7 +203,9 @@ def test_port_imports_no_jax():
             "ros_gpu_depthmap_fusion_tpu_torch.utils.checkpoint, "
             "ros_gpu_depthmap_fusion_tpu_torch.utils.png, "
             "ros_gpu_depthmap_fusion_tpu_torch.utils.profiling, "
-            "ros_gpu_depthmap_fusion_tpu_torch.utils.viz; "
+            "ros_gpu_depthmap_fusion_tpu_torch.utils.viz, "
+            "ros_gpu_depthmap_fusion_tpu_torch.parallel, "
+            "ros_gpu_depthmap_fusion_tpu_torch.parallel.engine; "
             "print(pre, 'jax' in sys.modules, "
             "any(m.startswith('ros_gpu_depthmap_fusion_tpu.') "
             "or m == 'ros_gpu_depthmap_fusion_tpu' for m in sys.modules))")

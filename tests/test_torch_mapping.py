@@ -320,6 +320,23 @@ def test_mapping_pipeline_matches_jax(need_native, backend,
         assert len(tp.last_phase_ms) == 3
 
 
+@pytest.mark.parametrize("backend", ["host", "device"])
+def test_process_host_grid_matches_jax(need_native, backend):
+    """``mapping/pipeline.py:199 process_host_grid`` (the sharded engine's
+    mapping step): five host-assembled grids through one pipeline each,
+    ``MappingResult``s bit-equal to the JAX pipeline's; the host
+    segmentation runs whatever the configured backend."""
+    kw = map_kw(segmentation_backend=backend)
+    tp = MappingPipeline(TCfg(**kw), TGrid.from_config(TCfg(**kw)), "cpu")
+    jp = JPipeline(JCfg(**kw), JGrid.from_config(JCfg(**kw)))
+    for f, occ in enumerate(scene()):
+        t_res = tp.process_host_grid(occ, dt=0.05)
+        j_res = jp.process_host_grid(occ, dt=0.05)
+        assert_same(j_res, t_res, f"frame {f} process_host_grid")
+        assert t_res.num_merged > 2
+    assert len(t_res.tracks) > 0
+
+
 def test_sparse_overflow_without_fallback_raises():
     kw = map_kw(segmentation_backend="device")
     tp = MappingPipeline(TCfg(**kw), TGrid.from_config(TCfg(**kw)), "cpu")

@@ -82,6 +82,18 @@ def test_transforms_bit_equal():
        jtf.transform_points(jnp.asarray(pts), jnp.asarray(move)))
 
 
+def test_identity_and_compose_match_jax():
+    """``core/transforms.py:24 identity`` and ``:61 compose``: equal to the
+    JAX functions on 64 random pose pairs."""
+    rng = np.random.default_rng(3)
+    eq(ttf.identity(torch.float32, "cpu"), jtf.identity(jnp.float32))
+    assert ttf.identity(torch.float64).dtype == torch.float64
+    a, b = _poses(rng, 64), _poses(rng, 64)
+    for x, y in zip(a, b):
+        eq(ttf.compose(T(x), T(y)), jtf.compose(jnp.asarray(x),
+                                                jnp.asarray(y)))
+
+
 def test_fma_is_correctly_rounded():
     """The port's fused multiply-add equals XLA:CPU's contracted a*b+c,
     including products whose float64 sum lands halfway between floats."""

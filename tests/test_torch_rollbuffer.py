@@ -96,3 +96,21 @@ def test_roll_everything_expires():
     rb = trb.roll(rb, 100, 0)
     assert int(rb.num_seqs) == 0 and int(rb.num_points) == 0
     assert not rb.mask.any() and not rb.points.any()
+
+
+def test_dump_matches_jax():
+    """``state/rollbuffer.py:313 dump`` (the reference's inspector): the
+    same keys, extents and arrays as the JAX dump after two frames."""
+    rng = np.random.default_rng(4)
+    t_rb = trb.make_rollbuffer(64, 8, "cpu")
+    j_rb = jrb.make_rollbuffer(64, 8)
+    for frame in range(2):
+        b = _batch(rng, frame, 3)
+        t_rb, _ = trb.insert_sequences(t_rb, *map(torch.as_tensor, b))
+        j_rb, _ = jrb.insert_sequences(j_rb, *map(jnp.asarray, b))
+    got, ref = trb.dump(t_rb), jrb.dump(j_rb)
+    assert list(got) == list(ref)
+    assert got["num_seqs"] == ref["num_seqs"] == 6 and got["num_points"] > 0
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+        assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
