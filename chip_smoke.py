@@ -43,9 +43,15 @@ each:
    "packed" in turns on fresh engines, no speed claimed. Then a
    heterogeneous rig (4 cameras at 848x480 and 4 at 640x360, ``"dpcm"``
    per group), 6 frames, with the same launch, plain-twin and
-   pipelined == synchronous checks; then small rigs card == CPU in each
-   mode (auto = rle, packed, exact, occupied, no voxel filter, radius
-   filter, heterogeneous);
+   pipelined == synchronous checks; then the launch file's two
+   deployments as written (``PRESET_HAFEN``: the first 6 of the rig's
+   cameras into the same 3,360,000-cell grid; ``PRESET_OFFICE``: 2
+   cameras facing each other from the edge of an 80x80x25 = 160,000-cell
+   grid, with a 87 degree field of view), no lidar, 10 synchronous frames
+   each: every frame equal to its plain-twin replay, launches a step as
+   ``EXPECTED``, at least 1,000 occupied cells a frame, ms/frame; then
+   small rigs card == CPU in each mode (auto = rle, packed, exact,
+   occupied, no voxel filter, radius filter, heterogeneous);
 6. mapping (``bench.py:443-537``, field for field): a fresh link engine
    with ``eng.mapping = MappingPipeline(cfg.replace(
    mapping_detail_min_area=-1.0), eng.grid, "cuda")``, 12 frames to fill
@@ -127,7 +133,10 @@ CUDA device it exits non-zero before printing any result.
 distributed engine over NCCL with one rank a card: the 1 x 1 run as above
 (on ``cuda:0``, held to the single engine), then meshes 2 x 2 and 4 x 1 on
 four ranks, every frame's digests and ``segment_and_track`` equal to the
-1 x 1 run's on every rank, launches a frame as ``EXPECTED``.
+1 x 1 run's on every rank, launches a frame as ``EXPECTED``; in each world
+the sharded BA over the stream axis on the SLAM run's first BA window
+(the hard sequence's first 24 frames on ``cuda:0``), held to
+``solve_window`` on each rank's card as in the ``[sharded]`` phase.
 """
 
 import hashlib
@@ -152,12 +161,21 @@ MAP_LAG = 4            # frames between a step and its drain (bench.py:500)
 RECORD_FRAME = 6       # the recorded step's frame (lidar window full)
 PUBLISH_FRAMES = 8
 HETERO_FRAMES = 6
+PRESET_FRAMES = 10
 TUM_FRAMES = 150       # the hard synthetic sequence, 640x480, one orbit
 TUM_GT_FRAMES = 20     # groundtruth-posed frames held to the plain replay
 SHARDED_FRAMES = PUBLISH_FRAMES
 BA_ITERS = 8           # the sharded BA's iterations (solve_window's default)
+BA_WINDOW_FRAMES = 24  # the hard sequence's frames through its first BA
 # the heterogeneous rig: 4 cameras at 848x480 and 4 at 640x360
 HETERO_SHAPES = ((H, W),) * 4 + ((360, 640),) * 4
+# the launch-file presets' rigs (core/config.py): Hafen takes the first 6
+# of the bench rig's 8 cameras; Office's 8 x 8 m crop holds none of the
+# bench rig's surfaces (8 m out, 2.2-2.9 m deep), so its 2 cameras face
+# each other from its edge (a 4 m ring) with a RealSense D435's 87 degree
+# depth field of view
+PRESETS = {"hafen": ("PRESET_HAFEN", {}, 60.0),
+           "office": ("PRESET_OFFICE", dict(spacing=2, radius=4.0), 87.0)}
 ENGINE_KERNELS = ("segreduce", "flying_pixels", "compact")
 KERNELS = ENGINE_KERNELS + ("fused_unproject_rle",)
 
@@ -181,6 +199,8 @@ EXPECTED = {
     "publish_exact": _launches(0, 1, 2),
     "publish_occupied": _launches(0, 1, 2),
     "hetero": _launches(2, 2, 1), "hetero_sync": _launches(2, 2, 1),
+    # the launch-file presets: the non-split step at "auto" = rle, no lidar
+    "hafen": _launches(2, 1, 1), "office": _launches(2, 1, 1),
     # the TUM runner's engine: one 640x480 camera, raw cloud, a 320^3 grid
     # (at least 2^24 cells: "auto" runs "packed")
     "tum": _launches(1, 1, 1), "tum_gt": _launches(1, 1, 1),
@@ -334,34 +354,41 @@ class Scene:
                           12 * np.sin(-t_l * 0.7 + rot),
                           1.5 + 0 * t_l], axis=-1).astype(np.float32)])
 
-    def cams_at(self, f):
+    def cams_at(self, f, spacing=None, radius=8.0):
+        """Camera poses on a ring of ``radius`` m, 2 m up, looking at its
+        centre 0.3 rad down; ``spacing`` slots (default: one a camera)."""
         tr = self.transforms
         yaw0 = 0.02 * np.sin(2 * np.pi * f / 60.0)  # rig sway
+        spacing = spacing or self.c
         out = []
         for i in range(self.c):
-            ang = i * 2 * np.pi / self.c + yaw0
-            pos = np.array([8 * np.cos(ang), 8 * np.sin(ang), 2.0])
+            ang = i * 2 * np.pi / spacing + yaw0
+            pos = np.array([radius * np.cos(ang), radius * np.sin(ang), 2.0])
             out.append(tr.make_se3(tr.rot_z(ang + np.pi)
                                    @ tr.rot_x(-np.pi / 2 - 0.3), pos))
         return out
 
-    def stage(self, eng, intr, f):
-        """Stage frame ``f`` into ``eng``; returns its timestamp. ``intr``
-        is one camera model or a list, one a camera; a camera whose stream
-        is smaller than the scene (a heterogeneous rig) gets the top-left
-        crop of its image."""
+    def stage(self, eng, intr, f, **ring):
+        """Stage frame ``f`` into ``eng``; returns its timestamp. The
+        engine's cameras are the scene's first ones (poses from
+        :meth:`cams_at` with ``ring``'s keywords); ``intr`` is one camera
+        model or a list, one a camera; a camera whose stream is smaller
+        than the scene (a heterogeneous rig) gets the top-left crop of its
+        image. The lidar arcs go to an engine that takes point
+        sequences."""
         d = self.depths[f % N_STAGED]
-        cams = self.cams_at(f)
+        cams = self.cams_at(f, **ring)
         shapes = eng.cfg.resolved_stream_shapes
-        for i in range(self.c):
+        for i in range(eng.cfg.num_depth_streams):
             h, w = shapes[i]
             eng.add_depthmap(i, d[i][:h, :w],
                              intr[i] if isinstance(intr, list) else intr,
                              cams[i], cams[i])
-        for arc in self.arcs[f % N_STAGED]:
-            eng.add_point_sequence(arc, sec=10 + (f // 30),
-                                   nsec=int((f % 30) * 33e6),
-                                   tf_move=np.eye(4, dtype=np.float32))
+        if eng.cfg.num_point_sequences:
+            for arc in self.arcs[f % N_STAGED]:
+                eng.add_point_sequence(arc, sec=10 + (f // 30),
+                                       nsec=int((f % 30) * 33e6),
+                                       tf_move=np.eye(4, dtype=np.float32))
         return 10.0 + f / 30.0
 
 
@@ -578,12 +605,13 @@ def check_frame_outputs(cfg, eng, outs, what):
 
 
 def run_engine(torch, eng, scene, intr, frames, kmods, expected,
-               step_tap=None, record=None):
+               step_tap=None, record=None, ring=None):
     """Drive ``eng`` through ``frames`` frames (then ``flush()`` when
     pipelined) through the user entry points. Every step must launch each
     engine kernel its ``expected`` number of times. ``step_tap`` receives
     (state before, inputs, depth_bits) of every step; ``record`` =
-    (frame, mods) records that frame's kernel calls. Returns (outputs,
+    (frame, mods) records that frame's kernel calls; ``ring`` places the
+    cameras (:meth:`Scene.cams_at`'s keywords). Returns (outputs,
     depth_bits per output, wall ms a frame of frames 4.. (frame 1.. of a
     shorter run) including a final synchronize, per-frame host ms of
     process() and of the step's enqueue, recorded calls)."""
@@ -611,7 +639,7 @@ def run_engine(torch, eng, scene, intr, frames, kmods, expected,
         if f == warm:
             torch.cuda.synchronize()
             t_steady = time.perf_counter()
-        now = scene.stage(eng, intr, f)
+        now = scene.stage(eng, intr, f, **(ring or {}))
         t0 = time.perf_counter()
         if record is not None and f == record[0] + eng.pipeline_depth:
             box = []
@@ -902,6 +930,61 @@ def hetero_phase(torch, engmod, FusionConfig, PinholeIntrinsics, scene,
           f"level-1 partials max {max_partials} of {partials_capacity(cfg)}"
           f" | launches {launches} | plain-twin step equal; pipelined == "
           f"sync | {gpu}", flush=True)
+    return launches
+
+
+def presets_phase(torch, engmod, config, PinholeIntrinsics, scene, kmods,
+                  gpu):
+    """The launch file's two deployments as written (``PRESET_HAFEN``,
+    ``PRESET_OFFICE``): ``FusionConfig()``'s defaults but for the rig,
+    grid, crop and lifetime, synchronous, :data:`PRESET_FRAMES` frames of
+    the scene (the rigs of :data:`PRESETS`). Every frame equal to its
+    plain-twin replay, launches a step as ``EXPECTED``, at least 1,000
+    occupied cells a frame. Returns launches by path."""
+    launches, parts = {}, []
+    for key, (name, ring, fov) in PRESETS.items():
+        cfg = getattr(config, name)
+        intr = PinholeIntrinsics.default_for(W, H, fov_deg=fov)
+        eng = engmod.FusionEngine(cfg, device="cuda")
+        if engmod.resolve_mean_mode(cfg, eng.grid) != "rle":
+            raise AssertionError(f"{key}: auto is not rle")
+        taps = []
+        zero_counts(kmods)
+        outs, bits, ms, _, _ = run_engine(
+            torch, eng, scene, intr, PRESET_FRAMES, kmods, EXPECTED[key],
+            step_tap=lambda *step: taps.append(step), ring=ring)
+        launches[key] = check_launches(kmods, EXPECTED[key], PRESET_FRAMES,
+                                       key)
+        if len(outs) != PRESET_FRAMES or not all(
+                isinstance(b, int) and b > 0 for b in bits):
+            raise AssertionError(f"{key}: outputs {len(outs)}, frame kinds "
+                                 f"{bits} (dpcm I-frames expected)")
+        for f, (out, tap) in enumerate(zip(outs, taps)):
+            assert_outputs_equal(torch, out, replay_plain(engmod, eng, tap),
+                                 f"{key} frame {f} vs the plain-twin step")
+        occupied = [int((o.occupancy_u8 > 0).sum()) for o in outs]
+        if min(occupied) < 1000:
+            raise AssertionError(f"{key}: occupied cells {occupied}, fewer "
+                                 "than 1,000 in a frame")
+        max_partials = max(int(o.vox_partials_count) for o in outs)
+        if max_partials > partials_capacity(cfg):
+            raise AssertionError(f"{key}: partials {max_partials} over "
+                                 "capacity")
+        last = outs[-1]
+        parts.append(
+            f"{key} ({cfg.num_depth_streams} x {W}x{H} at {fov:g} deg, "
+            f"{eng.grid.num_cells} cells): {ms:.2f} ms/frame | occupied "
+            f"cells {min(occupied)}-{max(occupied)} | raw cloud "
+            f"{int(last.raw_count)}, fused {int(last.fused_count)}, level-1 "
+            f"partials max {max_partials} of {partials_capacity(cfg)} | "
+            f"launches {launches[key]}")
+        del eng, outs, taps
+    print(f"[presets] launch-file deployments as written (dpcm link, raw "
+          f"cloud + dense occupancy, auto = rle, no lidar), "
+          f"{PRESET_FRAMES} frames, pipeline_depth=0, ms/frame of frames "
+          f"4.. ending with a synchronize (no speed claimed): "
+          f"{' || '.join(parts)} | every frame equal to its plain-twin "
+          f"step | {gpu}", flush=True)
     return launches
 
 
@@ -1669,6 +1752,37 @@ def sharded_phase(gpu, window):
                       "sharded_2x2": two["sites"]}
 
 
+def first_ba_window(device):
+    """The SLAM run's first BA window without the whole run: the hard
+    synthetic sequence's first :data:`BA_WINDOW_FRAMES` frames (rendered
+    at the full sequence's orbit rate, so the same frames) through
+    ``run_tum_sequence``'s SLAM poses on ``device``; the window its first
+    ``run_ba`` solves (numpy: poses, landmarks, obs_pose, obs_lm, obs_pt,
+    obs_valid)."""
+    import tempfile
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline import tum_runner
+    from ros_gpu_depthmap_fusion_tpu_torch.slam import frontend
+    windows = []
+    solve = frontend.solve_window
+
+    def keep_window(problem, **kw):
+        if not windows:
+            windows.append(problem)
+        return solve(problem, **kw)
+    frontend.solve_window = keep_window
+    try:
+        with tempfile.TemporaryDirectory(prefix="tum_hard_") as root:
+            tum_runner.write_hard_synthetic_tum_sequence(
+                root, n_frames=BA_WINDOW_FRAMES, orbit_frames=TUM_FRAMES)
+            tum_runner.run_tum_sequence(root, pose_source="slam",
+                                        ba_every=8, device=device)
+    finally:
+        frontend.solve_window = solve
+    if not windows:
+        raise AssertionError(f"no BA window in {BA_WINDOW_FRAMES} frames")
+    return tuple(t.cpu().numpy() for t in windows[0])
+
+
 def sharded_nccl_main():
     """``--sharded-nccl``: the distributed engine over NCCL, one rank a
     card, on four cards (see the module's docstring)."""
@@ -1688,27 +1802,43 @@ def sharded_nccl_main():
     native.require()
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    opts = dict(cards=4, window=None, gpu=None, with_single=False)
+    t0 = time.perf_counter()
+    window = first_ba_window("cuda:0")
+    t_window = time.perf_counter() - t0
+    opts = dict(cards=4, window=window, gpu=None, with_single=False)
     t0 = time.perf_counter()
     one = spawn(sharded_rank, 1, "nccl", timeout=120, join_timeout=300,
                 args=((1, 1), SHARDED_FRAMES, dict(opts, with_single=True)))[0]
     times, launches, ms = [time.perf_counter() - t0], dict(one["launches"]), {}
+    bas = {"1x1": one["ba"]}
     for shape in ((2, 2), (4, 1)):
         t0 = time.perf_counter()
-        path = f"sharded_{shape[0]}x{shape[1]}"
+        sx = f"{shape[0]}x{shape[1]}"
+        path = f"sharded_{sx}"
         world = spawn(sharded_rank, 4, "nccl", timeout=120, join_timeout=300,
                       args=(shape, SHARDED_FRAMES, opts))
         check_world(world, path, one)
         launches.update(world[0]["launches"])
         ms[path] = [round(w["ms"][path], 2) for w in world]
+        bas[sx] = world[0]["ba"]
         times.append(time.perf_counter() - t0)
+    ba_part = "; ".join(
+        f"{sx} accepted {b['ba_accepts'][0]} / solve_window "
+        f"{b['ba_accepts'][1]} (ties {b['ba_ties']}), poses within "
+        f"{b['ba_t_err']:.1e} m / {b['ba_r_err']:.1e} rad, call ms "
+        f"{b['sharded_ms']:.3f}" for sx, b in bas.items())
     print(f"[sharded nccl] publish config at packed, {SHARDED_FRAMES} "
           f"frames, one rank a card over NCCL: mesh 1x1 == the single "
           f"engine every frame; meshes 2x2 and 4x1 on cuda:0-3, every "
           f"frame's digests and segment_and_track == 1x1's on every rank | "
           f"ms/frame (frames 1.., ends with a synchronize): single "
           f"{one['ms']['single']:.2f}, 1x1 {one['ms']['sharded_1x1']:.2f}, "
-          f"by rank {ms} | launches {launches} | worlds "
+          f"by rank {ms} | launches {launches} | sharded BA over the "
+          f"stream axis, {BA_ITERS} iterations, on the SLAM run's first "
+          f"window {one['ba']['window']} (poses, landmarks, observations; "
+          f"{BA_WINDOW_FRAMES} frames in {t_window:.1f} s), rank 0 against "
+          f"solve_window on its card: {ba_part}; solve_window "
+          f"{one['ba']['solve_ms']:.3f} ms | worlds "
           f"{', '.join(f'{x:.1f}' for x in times)} s (rank start-up "
           f"included) | {gpu}", flush=True)
     print(gpu)
@@ -1781,10 +1911,10 @@ def main():
         raise SystemExit("chip_smoke.py: no CUDA device; this script "
                          "measures the port on a GPU and has no CPU mode")
     sys.path.insert(0, HERE)
+    from ros_gpu_depthmap_fusion_tpu_torch.core import config, transforms
     from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
     from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
         PinholeIntrinsics)
-    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
     from ros_gpu_depthmap_fusion_tpu_torch.ops import (
         mask_ops, unproject, voxelize)
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
@@ -1932,6 +2062,8 @@ def main():
     by_path.update(pub_launches)
     by_path.update(hetero_phase(torch, engmod, FusionConfig,
                                 PinholeIntrinsics, scene, kmods, gpu))
+    by_path.update(presets_phase(torch, engmod, config, PinholeIntrinsics,
+                                 scene, kmods, gpu))
     small_rigs_publish(torch, engmod, FusionConfig, transforms,
                        PinholeIntrinsics, gpu)
 
@@ -2083,7 +2215,8 @@ def main():
              "publish": PUBLISH_FRAMES, "publish_sync": PUBLISH_FRAMES,
              "publish_packed": PUBLISH_FRAMES, "publish_exact": 2,
              "publish_occupied": 2, "hetero": HETERO_FRAMES,
-             "hetero_sync": HETERO_FRAMES, "tum": TUM_FRAMES,
+             "hetero_sync": HETERO_FRAMES, "hafen": PRESET_FRAMES,
+             "office": PRESET_FRAMES, "tum": TUM_FRAMES,
              "tum_gt": TUM_GT_FRAMES, "sharded_1x1": SHARDED_FRAMES,
              "sharded_1x1_pipelined": SHARDED_FRAMES,
              "sharded_2x2": SHARDED_FRAMES}

@@ -185,3 +185,25 @@ class FusionConfig:
 
     def replace(self, **kw) -> "FusionConfig":
         return dataclasses.replace(self, **kw)
+
+
+# Launch-file deployment presets (launch/gpu_depthmap_fusion.launch:144-181).
+PRESET_HAFEN = FusionConfig(
+    num_depth_streams=6,
+    voxel_min=(-20.0, -20.0, 0.0),
+    voxel_max=(+20.0, +20.0, 2.5),
+    voxel_size=(0.1, 0.1, 0.12),      # 400 x 400 x 21 = 3,360,000 cells
+    crop_min=(-20.0, -20.0, 0.0),
+    crop_max=(+20.0, +20.0, 2.5),
+    voxel_occupancy_lifetime=10,
+)
+
+PRESET_OFFICE = FusionConfig(
+    num_depth_streams=2,
+    voxel_min=(-4.0, -4.0, 0.0),
+    voxel_max=(+4.0, +4.0, 2.5),
+    voxel_size=(0.1, 0.1, 0.1),       # 80 x 80 x 25 = 160,000 cells
+    crop_min=(-4.0, -4.0, 0.0),
+    crop_max=(+4.0, +4.0, 2.5),
+    voxel_occupancy_lifetime=10,
+)

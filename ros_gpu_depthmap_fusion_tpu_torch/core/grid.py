@@ -12,6 +12,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ros_gpu_depthmap_fusion_tpu_torch.core.devconst import const
@@ -73,6 +74,16 @@ class VoxelGrid:
         st = self.steps
         return u[..., 0] * st[0] + u[..., 1] * st[1] + u[..., 2] * st[2]
 
+    def grid_coord_wrapped(self, points_xyz: torch.Tensor) -> torch.Tensor:
+        """World points ``[..., 3]`` -> int32 grid coord with C-style
+        truncation and a positive modulo (grid_meta.h:58-71)."""
+        dev = points_xyz.device
+        lo = const(self.lower, dev)
+        cs = const(self.cell_size, dev)
+        trunc = torch.trunc((points_xyz - lo) / cs).to(torch.int32)
+        return torch.remainder(trunc, const(self.grid_size, dev,
+                                            torch.int32))
+
     def grid_coord_of_index(self, cell_index: torch.Tensor) -> torch.Tensor:
         """Linear index -> ``[..., 3]`` int32 grid coord
         (grid_meta.h:45-56)."""
@@ -98,6 +109,17 @@ class VoxelGrid:
 
     def world_coord_of_index(self, cell_index: torch.Tensor) -> torch.Tensor:
         return self.world_coord_of_coord(self.grid_coord_of_index(cell_index))
+
+    # --- numpy mirror for host-side assembly ---
+    def np_world_coord_of_index(self, cell_index: np.ndarray) -> np.ndarray:
+        """:meth:`world_coord_of_index` in numpy: float32 lower corners."""
+        gs = np.asarray(self.grid_size, dtype=np.int64)
+        st = np.asarray(self.steps, dtype=np.int64)
+        idx = np.asarray(cell_index, dtype=np.int64)
+        coord = np.stack([(idx // st[i]) % gs[i] for i in range(3)], axis=-1)
+        lo = np.asarray(self.lower, dtype=np.float32)
+        cs = np.asarray(self.cell_size, dtype=np.float32)
+        return coord.astype(np.float32) * cs + lo
 
     @staticmethod
     def from_config(cfg) -> "VoxelGrid":

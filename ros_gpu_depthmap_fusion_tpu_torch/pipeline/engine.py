@@ -43,6 +43,7 @@ frame k-1.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -506,6 +507,51 @@ def fusion_step(state: EngineState,
         occupancy_sparse_count=sc, occupancy_sparse_true=st)
 
 
+def _output_capacity(cfg: FusionConfig, grid: VoxelGrid,
+                     output_capacity: Optional[int]) -> int:
+    if output_capacity is None:
+        return min(grid.num_cells, cfg.total_point_capacity,
+                   cfg.voxelize_output_capacity)
+    return output_capacity
+
+
+def build_fusion_step(cfg: FusionConfig, grid: VoxelGrid,
+                      output_capacity: Optional[int] = None,
+                      donate: bool = True):
+    """The frame step for a static config and grid:
+    ``step(state, inp, depth_bits=None, plain=False) -> (new_state,
+    outputs)``, :func:`fusion_step` with ``cfg``, ``grid`` and
+    ``output_capacity`` bound (default ``min(num_cells,
+    total_point_capacity, voxelize_output_capacity)``).
+
+    ``donate`` is accepted for the JAX package's signature and has no
+    effect: the step never modifies its input state in place, so the
+    caller's state stays valid either way."""
+    del donate
+    return functools.partial(
+        fusion_step, cfg=cfg, grid=grid,
+        output_capacity=_output_capacity(cfg, grid, output_capacity))
+
+
+def build_packet_step(cfg: FusionConfig, grid: VoxelGrid,
+                      layout: PacketLayout,
+                      output_capacity: Optional[int] = None,
+                      donate: bool = True):
+    """The frame step over one packed u32 frame buffer (one host ->
+    device copy a frame; :mod:`pipeline.packet`): ``step(state, packet,
+    depth_bits=None, plain=False)`` unpacks ``packet`` with ``layout``
+    and runs :func:`build_fusion_step`'s step on it. ``output_capacity``
+    and ``donate`` as there."""
+    fusion = build_fusion_step(cfg, grid, output_capacity, donate)
+
+    def step(state: EngineState, packet: torch.Tensor, depth_bits=None,
+             plain: bool = False):
+        return fusion(state, unpack_packet(packet, layout, depth_bits),
+                      depth_bits, plain=plain)
+
+    return step
+
+
 def _write_raw_pairs(tail: np.ndarray, depth: np.ndarray) -> None:
     """Raw u16 depth as little-endian pairs into the packet's u32 ``tail``
     (an odd last pixel in the low half of a last word)."""
@@ -570,9 +616,9 @@ class FusionEngine:
         self.cfg = cfg
         self.device = torch.device(device)
         self.grid = grid or VoxelGrid.from_config(cfg)
-        self.output_capacity = min(self.grid.num_cells,
-                                   cfg.total_point_capacity,
-                                   cfg.voxelize_output_capacity)
+        self.output_capacity = _output_capacity(cfg, self.grid, None)
+        self._fusion_step = build_fusion_step(cfg, self.grid,
+                                              self.output_capacity)
         self.state = initial_state(cfg, self.grid, self.device)
         self.enable_mapping = enable_mapping
         self.mapping = (MappingPipeline(cfg, self.grid, self.device)
@@ -928,9 +974,7 @@ class FusionEngine:
 
     def step(self, inp: FrameInputs, depth_bits=None) -> FrameOutputs:
         """Run the frame step on uploaded inputs and advance the state."""
-        self.state, out = fusion_step(
-            self.state, inp, depth_bits, cfg=self.cfg, grid=self.grid,
-            output_capacity=self.output_capacity)
+        self.state, out = self._fusion_step(self.state, inp, depth_bits)
         return out
 
     def _step_put(self, fut) -> FrameOutputs:

@@ -1,8 +1,9 @@
-"""ctypes binding of the native host runtime (``native/libfusionhost.so``),
-the part the port uses: the three depth-link encoders, the lidar point
-staging copy, and the mapping's host segmentation (per-layer connected
-components, cross-layer merge, voxel stats), object assembly and contour
-tracing.
+"""ctypes binding of the native host runtime (``native/libfusionhost.so``):
+the three depth-link encoders, the lidar point staging copy, the mapping's
+host segmentation (per-layer connected components, cross-layer merge,
+voxel stats), object assembly and contour tracing, and the host helpers
+(depth-pair packing, the OpenMP LSD radix sort and the grouping of a
+sorted key array).
 
 A copy of the JAX package's ``utils/native.py`` (the port cannot import
 it: importing anything of that package imports jax). Both packages load
@@ -13,12 +14,12 @@ is git-ignored).
 Differences from the JAX copy: the library is built under a private name
 and renamed into place (test workers may build it at once); the encoders'
 zigzag scratch buffer is per thread (the pipelined engine encodes on a
-worker thread, and two engines may encode at once); and the encoders and
-the mapping entry points raise (through :func:`require`) when the library
-is missing, where the JAX copy returns ``None`` or falls back to numpy
-(only the staging copy, the same either way, keeps its numpy path), so
-that a configured codec never silently becomes the raw link and the host
-segmentation backend never silently becomes another.
+worker thread, and two engines may encode at once); and the encoders, the
+mapping entry points and the host helpers raise (through :func:`require`)
+when the library is missing, where the JAX copy returns ``None`` or falls
+back to numpy (only the staging copy, the same either way, keeps its numpy
+path), so that a configured codec never silently becomes the raw link and
+the host segmentation backend never silently becomes another.
 """
 
 from __future__ import annotations
@@ -93,6 +94,15 @@ def _load() -> Optional[ctypes.CDLL]:
         i32 = ctypes.c_int32
         f64 = ctypes.c_double
 
+        lib.fh_pack_depth_pairs.argtypes = [u16p, u32p, i64]
+        lib.fh_pack_depth_pairs.restype = None
+        lib.fh_unpack_depth_pairs.argtypes = [u32p, u16p, i64]
+        lib.fh_unpack_depth_pairs.restype = None
+        lib.fh_radix_sort_u32.argtypes = [u32p, u32p, u32p, i64]
+        lib.fh_radix_sort_u32.restype = None
+        lib.fh_group_sorted_u32.argtypes = [u32p, i64, i64p, i64p, u32p,
+                                            i64]
+        lib.fh_group_sorted_u32.restype = i64
         lib.fh_stage_points_xyz.argtypes = [f32p, i64, i64, f32p, i64]
         lib.fh_stage_points_xyz.restype = i64
         lib.fh_depth_encode2.argtypes = [u16p, i32, i32, i32, i64, i32p, i32,
@@ -149,6 +159,55 @@ def _zz_scratch(n: int) -> np.ndarray:
     if buf is None or buf.size < n:
         buf = _scratch.buf = np.empty(n, np.uint32)
     return buf[:n]
+
+
+def pack_depth_pairs(depth_u16: np.ndarray) -> np.ndarray:
+    """Two u16 depths a u32 word, the first in the low half
+    (``fh_pack_depth_pairs``); an odd last pixel is dropped."""
+    lib = require()
+    d = np.ascontiguousarray(np.asarray(depth_u16).reshape(-1), np.uint16)
+    n = d.size // 2
+    out = np.empty(n, np.uint32)
+    lib.fh_pack_depth_pairs(d, out, n)
+    return out
+
+
+def unpack_depth_pairs(pairs_u32: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`pack_depth_pairs` (``fh_unpack_depth_pairs``):
+    ``[2 N]`` u16."""
+    lib = require()
+    p = np.ascontiguousarray(pairs_u32, np.uint32)
+    out = np.empty(p.size * 2, np.uint16)
+    lib.fh_unpack_depth_pairs(p, out, p.size)
+    return out
+
+
+def radix_sort_u32(keys: np.ndarray):
+    """Stable ascending sort (``fh_radix_sort_u32``); returns
+    ``(sorted_keys, original_indices)``, both u32."""
+    lib = require()
+    k = np.ascontiguousarray(keys, np.uint32)
+    out_k = np.empty_like(k)
+    out_i = np.empty(k.size, np.uint32)
+    lib.fh_radix_sort_u32(k, out_k, out_i, k.size)
+    return out_k, out_i
+
+
+def group_sorted_u32(sorted_keys: np.ndarray, cap: Optional[int] = None):
+    """The runs of equal keys of a sorted u32 array
+    (``fh_group_sorted_u32``): ``(starts, sizes, values, num_groups)``, the
+    first three of length ``cap`` (default: the key count), int64, int64
+    and u32, zero past ``num_groups``; at most ``cap`` groups are kept."""
+    lib = require()
+    k = np.ascontiguousarray(sorted_keys, np.uint32)
+    cap = cap or k.size
+    starts = np.zeros(cap, np.int64)
+    sizes = np.zeros(cap, np.int64)
+    values = np.zeros(cap, np.uint32)
+    if not k.size:
+        return starts, sizes, values, 0
+    n = int(lib.fh_group_sorted_u32(k, k.size, starts, sizes, values, cap))
+    return starts, sizes, values, n
 
 
 def _bucket_list(allowed_bits):

@@ -26,3 +26,4 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
         "kernels); skipped elsewhere")
+    config.addinivalue_line("markers", "slow: a full-size run, outside tier-1")

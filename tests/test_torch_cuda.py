@@ -9,7 +9,8 @@ and the coded link, in every mode of the non-split step and on
 heterogeneous rigs, and the
 mapping on the card == CPU (device segmentation up to ``bench.py``'s
 400x400x21 grid, the sparse mapping cycle, the component with mapping
-on). They need an NVIDIA GPU and nvcc and skip elsewhere; on a GPU
+on), and the launch-file presets on small rigs card == CPU. They need an
+NVIDIA GPU and nvcc and skip elsewhere; on a GPU
 machine run
 
     python -m pytest -q -p no:cacheprovider --noconftest tests/test_torch_cuda.py
@@ -725,6 +726,85 @@ def test_publish_engine_on_card_equals_cpu(dev, case):
             assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
     last = outs[1][-1][0]
     assert int(last.fused_count) > 0 and int(last.raw_count) > 0
+
+
+# the launch-file presets' small rigs (also ``tests/test_torch_presets.py``):
+# each preset's grid, crop and lifetime, cameras at PRESET_HW; by preset,
+# (cameras, ring slots, ring radius m) of bench.py-like rigs looking at the
+# grid's centre: the first 6 of 8 on an 8 m ring (Hafen), 2 facing each
+# other from the edge of the 8 x 8 m crop (Office)
+PRESET_HW = (48, 64)
+PRESET_RIGS = {"PRESET_HAFEN": (6, 8, 8.0), "PRESET_OFFICE": (2, 2, 4.0)}
+
+
+def preset_poses(name, f):
+    """The camera poses of preset ``name``'s rig at frame ``f``: on a ring
+    2 m up, looking at its centre 0.3 rad down, swaying with the frame."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms as tr
+    n, slots, radius = PRESET_RIGS[name]
+    yaw0 = 0.02 * np.sin(2 * np.pi * f / 60.0)
+    out = []
+    for i in range(n):
+        ang = i * 2 * np.pi / slots + yaw0
+        pos = np.array([radius * np.cos(ang), radius * np.sin(ang), 2.0])
+        out.append(tr.make_se3(tr.rot_z(ang + np.pi)
+                               @ tr.rot_x(-np.pi / 2 - 0.3), pos)
+                   .astype(np.float32))
+    return out
+
+
+def preset_depths(name, n_frames, seed=7):
+    """Frames of u16 millimetre depth for preset ``name``'s cameras:
+    smooth surfaces 2.2-2.9 m away with pattern noise, persistent holes
+    and a moving blob."""
+    h, w = PRESET_HW
+    n = PRESET_RIGS[name][0]
+    rng = np.random.default_rng(seed)
+    u, v = np.meshgrid(np.arange(w), np.arange(h))
+    base = 2500 + 200 * np.sin(u / 15.0) + 150 * np.cos(v / 12.0)
+    holes = rng.random((n, h, w)) < 0.01
+    for f in range(n_frames):
+        blob = 300 * np.exp(-(((u - w * 0.5 - 4 * np.cos(f)) / 6.0) ** 2
+                             + ((v - h * 0.5) / 5.0) ** 2))
+        d = (base - blob + rng.normal(0, 6, (n, h, w))).astype(np.uint16)
+        d[holes] = 0
+        yield d
+
+
+def stage_preset(eng, name, f, depth):
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    intr = PinholeIntrinsics.default_for(PRESET_HW[1], PRESET_HW[0])
+    for i, pose in enumerate(preset_poses(name, f)):
+        eng.add_depthmap(i, depth[i], intr, pose, pose)
+
+
+@pytest.mark.parametrize("name", list(PRESET_RIGS))
+def test_preset_engine_on_card_equals_cpu(dev, name):
+    """Each launch-file preset as written (the "dpcm" link, raw cloud,
+    dense occupancy, "auto" = rle) with its cameras cut to 64x48: five
+    frames, every output equal on the card and on the CPU."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core import config
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        FusionEngine)
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+    if not native.available():
+        pytest.skip("native library not built")
+    cfg = getattr(config, name).replace(depth_height=PRESET_HW[0],
+                                        depth_width=PRESET_HW[1])
+    engines = [FusionEngine(cfg, device=dev), FusionEngine(cfg, "cpu")]
+    for f, d in enumerate(preset_depths(name, 5)):
+        outs = []
+        for e in engines:
+            stage_preset(e, name, f, d)
+            outs.append(e.process(1.0 + f / 30.0))
+        assert engines[0].last_frame_bits == engines[1].last_frame_bits
+        for k in outs[1]._fields:
+            assert torch.equal(getattr(outs[0], k).cpu(),
+                               getattr(outs[1], k)), (f, k)
+        assert int((outs[1].occupancy_u8 > 0).sum()) >= 500
+    for e in engines:
+        e.close()
 
 
 # the raw cloud of the bench rig: 8 x 480 x 848 pixels + 98,304 lidar rows

@@ -4,7 +4,9 @@ fusion against the JAX run under ``jax.disable_jit()`` (equal occupancy,
 fused count and trajectory), SLAM-posed runs with JAX's RANSAC draws (the
 same keyframes, the trajectory within 1e-3 m) and with the port's own (ATE
 below 10 cm), and the reduced hard cut of ``tests/test_tum_runner.py`` on
-the port alone (ATE at most 5 cm, as that test asserts for JAX).
+the port alone (ATE at most 5 cm, as that test asserts for JAX). The
+``slow`` test runs the full hard sequence with loop closure through both
+packages with JAX's draws (about 10 minutes on an 8-core CPU).
 """
 
 import filecmp
@@ -16,9 +18,11 @@ import pytest
 
 from ros_gpu_depthmap_fusion_tpu.core.config import FusionConfig as JCfg
 from ros_gpu_depthmap_fusion_tpu.pipeline import tum_runner as jrun
+from ros_gpu_depthmap_fusion_tpu.slam import loop_closure as jlc
 
 from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
 from ros_gpu_depthmap_fusion_tpu_torch.pipeline import tum_runner as trun
+from ros_gpu_depthmap_fusion_tpu_torch.slam import loop_closure as tlc
 from ros_gpu_depthmap_fusion_tpu_torch.slam import pose_estimation as pe
 
 from test_torch_slam import JaxDraws
@@ -144,3 +148,54 @@ def test_hard_cut_ate_under_5cm(tmp_path):
     assert res.ate_rmse_loop_closed_m is not None
     assert res.occupied_cells > 0 and res.fused_points_last > 0
     assert res.keyframes >= 3
+
+
+def _recording(close_loops, closer, rec):
+    """``close_loops`` with its closer kept: records the kept loop edges
+    as (earlier, later) keyframe stamps and the keyframe positions after
+    the pose graph."""
+    def run(odo, **kw):
+        c = closer(odo)
+        out = close_loops(odo, c, **kw)
+        stamps = [kf.stamp for kf in odo.keyframes]
+        rec["edges"] = [(stamps[e.i], stamps[e.j]) for e in c.edges]
+        rec["positions"] = np.stack([np.asarray(kf.pose)[:3, 3]
+                                     for kf in odo.keyframes])
+        return out
+    return run
+
+
+@pytest.mark.slow
+def test_full_hard_sequence_matches_jax_with_jax_draws(tmp_path,
+                                                       monkeypatch):
+    """BASELINE config #4 at full size: the hard synthetic sequence
+    (640x480 x 150, one closing orbit), SLAM poses with BA every 8
+    keyframes and loop closure, through the JAX runner (jitted, on the
+    CPU) and the port's on the CPU with JAX's RANSAC draws for the
+    frontend (seed 0) and the loop closer (seed 17). The same keyframes
+    and loop edges, the trajectory and the loop-closed keyframes within
+    1e-3 m (a BA step decided by a rounding tie moves poses by about
+    2e-4 m, ``slam/ba.py:188``, inside this bound), both ATEs within 0.1
+    cm."""
+    root = str(tmp_path / "hard")
+    trun.write_hard_synthetic_tum_sequence(root)
+    kw = dict(pose_source="slam", ba_every=8, loop_close=True)
+    jrec, trec = {}, {}
+    monkeypatch.setattr(jlc, "close_loops", _recording(
+        jlc.close_loops, lambda odo: jlc.LoopCloser(), jrec))
+    jres = jrun.run_tum_sequence(root, **kw)
+    monkeypatch.setattr(pe, "_sample_hypotheses", JaxDraws(0, 17))
+    monkeypatch.setattr(trun, "close_loops", _recording(
+        tlc.close_loops, lambda odo: tlc.LoopCloser(odo.device), trec))
+    tres = trun.run_tum_sequence(root, device="cpu", **kw)
+    assert tres.frames == jres.frames == 150
+    assert tres.keyframes == jres.keyframes
+    assert tres.loop_edges == jres.loop_edges == len(jrec["edges"]) > 0
+    assert trec["edges"] == jrec["edges"]
+    np.testing.assert_allclose(tres.trajectory, jres.trajectory, rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(trec["positions"], jrec["positions"],
+                               rtol=0, atol=1e-3)
+    assert abs(tres.ate_rmse_m - jres.ate_rmse_m) < 1e-3
+    assert abs(tres.ate_rmse_loop_closed_m
+               - jres.ate_rmse_loop_closed_m) < 1e-3
