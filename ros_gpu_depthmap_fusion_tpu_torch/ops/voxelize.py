@@ -113,6 +113,15 @@ def _cell_means(cells, qsums, cnts, live, grid: VoxelGrid):
     return torch.cat([means, w_col[:, None]], dim=-1), safe
 
 
+def resolve_partials_capacity(partials_capacity: int, n: int) -> int:
+    """The level-1 rows an "rle" voxelize of ``n`` rows holds:
+    ``partials_capacity``, or ``max(2^16, n // 4)`` when it is 0; at most
+    ``n``."""
+    if partials_capacity <= 0:
+        partials_capacity = max(1 << 16, n // 4)
+    return min(partials_capacity, n)
+
+
 def voxelize_average_rle_domains(domains,
                                  grid: VoxelGrid,
                                  capacity: int,
@@ -153,9 +162,7 @@ def voxelize_average_rle_domains(domains,
         raise ValueError("rle voxelize needs a grid of fewer than 2^24 "
                          f"cells, got {num_cells}")
     n_total = sum(int(m.shape[0]) for _, _, m in domains)
-    if partials_capacity <= 0:
-        partials_capacity = max(1 << 16, n_total // 4)
-    partials_capacity = min(partials_capacity, n_total)
+    partials_capacity = resolve_partials_capacity(partials_capacity, n_total)
     sentinel = num_cells
     dev = domains[0][0].device
 

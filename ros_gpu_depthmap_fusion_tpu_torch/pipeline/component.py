@@ -16,7 +16,11 @@ of the message bus:
   reference's three ``in/Config/FilterFlyingPixels/*`` topics
   (cpp:970-990);
 - publishers — ``on_points`` / ``on_mapping`` callables in place of
-  ``out/Points`` / ``out/Viz`` (cpp:1197-1200).
+  ``out/Points`` / ``out/Viz`` (cpp:1197-1200);
+- ``cfg.enable_debug_output`` — switches the tracer
+  (:mod:`utils.profiling`) on while the component's callbacks run, and
+  back to its earlier state after each, and prints its report of each
+  frame after the frame (the reference's timing printout, cpp:466-515).
 
 The device is explicit, as for the engine.
 """
@@ -24,6 +28,7 @@ The device is explicit, as for the engine.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -34,6 +39,7 @@ from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
     FrameOutputs, FusionEngine)
 from ros_gpu_depthmap_fusion_tpu_torch.pipeline.sync import (
     ApproximateTimeSynchronizer, SlotConfig, Stamped)
+from ros_gpu_depthmap_fusion_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -42,6 +48,23 @@ class DepthMessage:
     intrinsics: PinholeIntrinsics
     tf_world_cam: np.ndarray
     tf_crop_cam: np.ndarray
+
+
+def _traced(method):
+    """Run ``method`` with the tracer on when the component's
+    ``cfg.enable_debug_output`` is set, restoring the tracer's state
+    after: other engines in the process are not traced for it."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        if not self.cfg.enable_debug_output:
+            return method(self, *args, **kwargs)
+        was = profiling.enabled()
+        profiling.enable()
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            profiling.enable(was)
+    return wrapper
 
 
 class FusionComponent:
@@ -79,6 +102,7 @@ class FusionComponent:
         processed only once its intrinsics are known."""
         self._camera_info[slot] = intrinsics
 
+    @_traced
     def callback_depthmap(self, slot: int, stamp: float,
                           depth_u16: np.ndarray,
                           intrinsics: Optional[PinholeIntrinsics] = None,
@@ -96,15 +120,21 @@ class FusionComponent:
         if tf_crop_cam is None:
             tf_crop_cam = tf_world_cam
         msg = DepthMessage(depth_u16, intrinsics, tf_world_cam, tf_crop_cam)
-        tup = self.sync.push(slot, stamp, msg)
-        if tup is None:
-            return None
-        if self.resample:
-            self._stash = tup
-            self._stash_new = True
+        with profiling.span("fusion.component.sync", self.engine.frame_id):
+            dropped = self.sync.dropped
+            tup = self.sync.push(slot, stamp, msg)
+            profiling.count("fusion.component.sync_dropped",
+                            self.sync.dropped - dropped)
+            if tup is not None and self.resample:
+                if self._stash_new:
+                    profiling.count("fusion.component.stash_replaced")
+                self._stash = tup
+                self._stash_new = True
+        if tup is None or self.resample:
             return None
         return self._process_tuple(tup, stamp)
 
+    @_traced
     def callback_point_sequence(self, stamp: float, points_xyz: np.ndarray,
                                 tf_move_sensor: Optional[np.ndarray] = None):
         """One lidar packet (cpp:991-1013), staged with its capture
@@ -158,6 +188,7 @@ class FusionComponent:
         self.engine.set_runtime_filters(*runtime)
 
     # ------ processing ----------------------------------------------------
+    @_traced
     def tick_resample(self, now: float) -> Optional[FrameOutputs]:
         """Resample-timer body (cpp:74-90): process the newest stashed
         tuple, if one arrived since the last tick."""
@@ -181,4 +212,6 @@ class FusionComponent:
             self.on_points(out)
         if self.enable_mapping and self.on_mapping is not None:
             self.on_mapping(self.engine.segment_and_track(out))
+        if self.cfg.enable_debug_output:
+            print(profiling.report(self.engine.frame_id - 1), flush=True)
         return out

@@ -72,13 +72,14 @@ from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import (
     occupancy_bitmap, occupancy_bitmap_sparse, occupancy_to_u8,
     scatter_occupancy, update_historic_occupancy)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.voxelize import (
-    RLE_MAX_CELLS, voxelize_average, voxelize_average_packed,
-    voxelize_average_rle, voxelize_average_rle_domains, voxelize_occupied)
+    RLE_MAX_CELLS, resolve_partials_capacity, voxelize_average,
+    voxelize_average_packed, voxelize_average_rle,
+    voxelize_average_rle_domains, voxelize_occupied)
 from ros_gpu_depthmap_fusion_tpu_torch.pipeline.packet import (
     HostPacket, PacketLayout, unpack_packet)
 from ros_gpu_depthmap_fusion_tpu_torch.state import rollbuffer as rbmod
 from ros_gpu_depthmap_fusion_tpu_torch.state.rollbuffer import RollBuffer
-from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+from ros_gpu_depthmap_fusion_tpu_torch.utils import native, profiling
 
 
 class EngineState(NamedTuple):
@@ -157,6 +158,29 @@ def resolve_mean_mode(cfg: FusionConfig, grid: VoxelGrid) -> str:
     if mode == "auto":
         return "rle" if grid.num_cells < RLE_MAX_CELLS else "packed"
     return mode
+
+
+def split_layout(cfg: FusionConfig, grid: VoxelGrid) -> bool:
+    """Whether the step runs the split-domain layout: only the averaged
+    cloud is wanted, at mode "rle" (no raw cloud, no radius filter)."""
+    return (cfg.enable_voxel_filter and cfg.voxel_enable_average
+            and resolve_mean_mode(cfg, grid) == "rle"
+            and not cfg.emit_raw_points and not cfg.enable_radius_filter)
+
+
+def resolved_partials_capacity(cfg: FusionConfig, grid: VoxelGrid) -> int:
+    """The level-1 partial rows the step's "rle" voxelize holds a frame:
+    ``cfg.voxelize_partials_capacity``, or resolved by the voxelizer's rule
+    (:func:`ops.voxelize.resolve_partials_capacity`) over the rows it
+    reduces: the depth pixels in the split-domain layout, the depth pixels
+    and the rollbuffer selection otherwise. 0 where the step runs no "rle"
+    voxelize."""
+    if not (cfg.enable_voxel_filter and cfg.voxel_enable_average
+            and resolve_mean_mode(cfg, grid) == "rle"):
+        return 0
+    n = (cfg.depthmaps_total_elements if split_layout(cfg, grid)
+         else cfg.total_point_capacity)
+    return resolve_partials_capacity(cfg.voxelize_partials_capacity, n)
 
 
 def check_supported(cfg: FusionConfig) -> None:
@@ -337,21 +361,23 @@ def fusion_step(state: EngineState,
     sb = inp.seq_batch
 
     # -- 1. filter new point sequences (sensor frame) --
-    staged = torch.arange(sb.points.shape[0], dtype=torch.int32,
-                          device=dev) < sb.num_points
-    seq_mask = filter_point_sequence(
-        sb.points, staged, sb.num_points, cfg.point_sequence_filter_size,
-        inp.ps_threshold)
+    with profiling.span("fusion.step.lidar"):
+        staged = torch.arange(sb.points.shape[0], dtype=torch.int32,
+                              device=dev) < sb.num_points
+        seq_mask = filter_point_sequence(
+            sb.points, staged, sb.num_points, cfg.point_sequence_filter_size,
+            inp.ps_threshold)
 
-    # -- 2-5. rollbuffer insert, expiry, selection, gather + transform --
-    rb, _ = rbmod.insert_sequences(
-        rb, sb.points, seq_mask, sb.seq_idx, sb.seq_sec, sb.seq_nsec,
-        sb.seq_count, sb.seq_tf_move, sb.num_points, sb.num_seqs)
-    rb = rbmod.roll(rb, inp.roll_min_sec, inp.roll_min_nsec)
-    sel = rbmod.select_timespan(
-        rb, inp.roll_min_sec, inp.roll_min_nsec, inp.now_sec, inp.now_nsec)
-    seq_world, seq_crop, seq_valid, _ = rbmod.gather_selection(
-        rb, sel, inp.tf_world_move, inp.tf_crop_move, sel_cap)
+        # -- 2-5. rollbuffer insert, expiry, selection, gather + transform --
+        rb, _ = rbmod.insert_sequences(
+            rb, sb.points, seq_mask, sb.seq_idx, sb.seq_sec, sb.seq_nsec,
+            sb.seq_count, sb.seq_tf_move, sb.num_points, sb.num_seqs)
+        rb = rbmod.roll(rb, inp.roll_min_sec, inp.roll_min_nsec)
+        sel = rbmod.select_timespan(
+            rb, inp.roll_min_sec, inp.roll_min_nsec, inp.now_sec,
+            inp.now_nsec)
+        seq_world, seq_crop, seq_valid, _ = rbmod.gather_selection(
+            rb, sel, inp.tf_world_move, inp.tf_crop_move, sel_cap)
 
     # -- 6. decode the link, unproject; 7. flying-pixel filter: per
     #    resolution group (one on a homogeneous rig), each group's world,
@@ -360,138 +386,150 @@ def fusion_step(state: EngineState,
     prev_depth_q = state.prev_depth_q
     g_world, g_crop, g_mask = [], [], []
     groups = cfg.stream_groups
-    if len(groups) > 1:
-        bits_t = depth_bits if depth_bits is not None else (None,) * len(
-            groups)
-        scales = cfg.resolved_depth_scales
-        fronts = []
-        for gi, (ix, gh, gw) in enumerate(groups):
-            depth = inp.depth[gi]
-            if bits_t[gi] is not None:
-                depth = decode_depth(depth, gh, gw, bits_t[gi],
-                                     cfg.depth_codec_quant_shift)
-            cams = const(ix, dev, torch.int64)
-            fronts.append((depth, inp.intrinsics[cams], inp.tf_world[cams],
-                           inp.tf_crop[cams], tuple(scales[i] for i in ix),
-                           gh, gw))
-    else:
-        depth, prev_depth_q = decode_link(state, inp.depth, depth_bits, cfg)
-        scale = (cfg.resolved_depth_scales if cfg.depth_scales is not None
-                 else cfg.depth_scale)
-        fronts = [(depth, inp.intrinsics, inp.tf_world, inp.tf_crop, scale,
-                   cfg.depth_height, cfg.depth_width)]
-    for depth, intr, tf_world, tf_crop, scale, gh, gw in fronts:
-        pts_cam, pts_world, pts_crop, dmask = unproject_depthmaps(
-            depth, intr, tf_world, tf_crop, scale)
-        if cfg.enable_flyingpixels_filter:
-            dmask = fp(pts_cam, dmask, gh, gw, cfg.flyingpixels_filter_size,
-                       inp.fp_threshold, cfg.flyingpixels_filter_enable_rot45,
-                       inp.fp_max_distance)
-        ng = depth.shape[0] * gh * gw
-        g_world.append(pts_world.reshape(ng, 4))
-        g_crop.append(pts_crop.reshape(ng, 4))
-        g_mask.append(dmask.reshape(ng))
+    with profiling.span("fusion.step.depth"):
+        if len(groups) > 1:
+            bits_t = depth_bits if depth_bits is not None else (
+                None,) * len(groups)
+            scales = cfg.resolved_depth_scales
+            fronts = []
+            for gi, (ix, gh, gw) in enumerate(groups):
+                depth = inp.depth[gi]
+                if bits_t[gi] is not None:
+                    depth = decode_depth(depth, gh, gw, bits_t[gi],
+                                         cfg.depth_codec_quant_shift)
+                cams = const(ix, dev, torch.int64)
+                fronts.append((depth, inp.intrinsics[cams],
+                               inp.tf_world[cams], inp.tf_crop[cams],
+                               tuple(scales[i] for i in ix), gh, gw))
+        else:
+            depth, prev_depth_q = decode_link(state, inp.depth, depth_bits,
+                                              cfg)
+            scale = (cfg.resolved_depth_scales
+                     if cfg.depth_scales is not None else cfg.depth_scale)
+            fronts = [(depth, inp.intrinsics, inp.tf_world, inp.tf_crop,
+                       scale, cfg.depth_height, cfg.depth_width)]
+        for depth, intr, tf_world, tf_crop, scale, gh, gw in fronts:
+            pts_cam, pts_world, pts_crop, dmask = unproject_depthmaps(
+                depth, intr, tf_world, tf_crop, scale)
+            if cfg.enable_flyingpixels_filter:
+                dmask = fp(pts_cam, dmask, gh, gw,
+                           cfg.flyingpixels_filter_size, inp.fp_threshold,
+                           cfg.flyingpixels_filter_enable_rot45,
+                           inp.fp_max_distance)
+            ng = depth.shape[0] * gh * gw
+            g_world.append(pts_world.reshape(ng, 4))
+            g_crop.append(pts_crop.reshape(ng, 4))
+            g_mask.append(dmask.reshape(ng))
 
     # -- 8-10. the split-domain layout (JAX pipeline/engine.py:288-318):
     #    the depth sections and the lidar selection meet at the partials,
     #    when only the averaged cloud is wanted at mode "rle" --
     mode = resolve_mean_mode(cfg, grid)
     emit_raw = cfg.emit_raw_points or not cfg.enable_voxel_filter
-    split = (cfg.enable_voxel_filter and cfg.voxel_enable_average
-             and mode == "rle" and not emit_raw
-             and not cfg.enable_radius_filter)
     total_cap = n_depth + sel_cap
     num_cells = grid.num_cells
     raw_points = torch.zeros((1, 4), dtype=torch.float32, device=dev)
     vox_partials = torch.zeros((), dtype=torch.int32, device=dev)
-    if split:
-        domains, raw_count = [], None
-        for pw, pc, m in zip(g_world, g_crop, g_mask):
-            m = crop_points(pc, m, cfg.crop_min, cfg.crop_max)
-            n_m = m.sum(dtype=torch.int32)
-            raw_count = n_m if raw_count is None else raw_count + n_m
-            domains.append((pw, grid.cell_index_clamped(pw[:, :3]), m))
-        seq_valid = crop_points(seq_crop, seq_valid, cfg.crop_min,
-                                cfg.crop_max)
-        raw_count = torch.clamp_max(
-            raw_count + seq_valid.sum(dtype=torch.int32), total_cap)
-        fused_points, fused_count, (cells, cells_live), vox_partials = (
-            voxelize_average_rle_domains(
-                domains, grid, output_capacity,
-                partials_capacity=cfg.voxelize_partials_capacity,
-                extra_points=seq_world,
-                extra_cell_indices=grid.cell_index_clamped(seq_world[:, :3]),
-                extra_mask=seq_valid, plain=plain))
+    if split_layout(cfg, grid):
+        with profiling.span("fusion.step.voxelize"):
+            domains, raw_count = [], None
+            for pw, pc, m in zip(g_world, g_crop, g_mask):
+                m = crop_points(pc, m, cfg.crop_min, cfg.crop_max)
+                n_m = m.sum(dtype=torch.int32)
+                raw_count = n_m if raw_count is None else raw_count + n_m
+                domains.append((pw, grid.cell_index_clamped(pw[:, :3]), m))
+            seq_valid = crop_points(seq_crop, seq_valid, cfg.crop_min,
+                                    cfg.crop_max)
+            raw_count = torch.clamp_max(
+                raw_count + seq_valid.sum(dtype=torch.int32), total_cap)
+            fused_points, fused_count, (cells, cells_live), vox_partials = (
+                voxelize_average_rle_domains(
+                    domains, grid, output_capacity,
+                    partials_capacity=cfg.voxelize_partials_capacity,
+                    extra_points=seq_world,
+                    extra_cell_indices=grid.cell_index_clamped(
+                        seq_world[:, :3]),
+                    extra_mask=seq_valid, plain=plain))
         # occupancy + decay: the fresh grid is 0/1 at the emitted cells, so
         # max(aged, fresh * lifetime) is a scatter-max of `lifetime` at
         # those cells into the aged grid
-        aged = torch.cat([torch.clamp_min(state.historic_occupancy - 1, 0),
-                          torch.zeros((1,), dtype=torch.int32, device=dev)])
-        target = torch.where(cells_live, cells, num_cells).long()
-        historic = aged.scatter_reduce_(
-            0, target, torch.full_like(cells, cfg.voxel_occupancy_lifetime),
-            reduce="amax")[:num_cells]
+        with profiling.span("fusion.step.occupancy"):
+            aged = torch.cat([
+                torch.clamp_min(state.historic_occupancy - 1, 0),
+                torch.zeros((1,), dtype=torch.int32, device=dev)])
+            target = torch.where(cells_live, cells, num_cells).long()
+            historic = aged.scatter_reduce_(
+                0, target,
+                torch.full_like(cells, cfg.voxel_occupancy_lifetime),
+                reduce="amax")[:num_cells]
     else:
-        # -- 8. depth sections then the lidar selection, concatenated (the
-        #    reference's layout), cropped; 8b. the radius filter --
-        all_world = torch.cat(g_world + [seq_world])
-        all_mask = crop_points(torch.cat(g_crop + [seq_crop]),
-                               torch.cat(g_mask + [seq_valid]),
-                               cfg.crop_min, cfg.crop_max)
-        if cfg.enable_radius_filter:
-            all_mask = filter_radius_outliers(
-                all_world, all_mask, cfg.radius_min, cfg.radius_max,
-                cfg.radius_filter_radius)
-        # -- 9. the raw cloud, compacted when it is emitted (or is the
-        #    output); voxelize reads the masked rows otherwise --
-        if emit_raw:
-            raw_points, raw_count = compact(all_world, all_mask, total_cap,
-                                            plain=plain)
-            vox_points = raw_points
-            live = torch.arange(total_cap, dtype=torch.int32,
-                                device=dev) < raw_count
-        else:
-            raw_count = torch.clamp_max(all_mask.sum(dtype=torch.int32),
-                                        total_cap)
-            vox_points, live = all_world, all_mask
-        # -- 10. cell ids, voxelize --
-        cell_ids = grid.cell_index_clamped(vox_points[:, :3])
-        fresh = None
-        if not cfg.enable_voxel_filter:
-            fused_points, fused_count = raw_points, raw_count
-        elif not cfg.voxel_enable_average:
-            fresh = scatter_occupancy(cell_ids, live, num_cells)
-            fused_points, fused_count = voxelize_occupied(
-                fresh, grid, output_capacity, plain=plain)
-        elif mode == "rle":
-            fused_points, fused_count, fresh, vox_partials = (
-                voxelize_average_rle(
+        with profiling.span("fusion.step.voxelize"):
+            # -- 8. depth sections then the lidar selection, concatenated
+            #    (the reference's layout), cropped; 8b. the radius filter --
+            all_world = torch.cat(g_world + [seq_world])
+            all_mask = crop_points(torch.cat(g_crop + [seq_crop]),
+                                   torch.cat(g_mask + [seq_valid]),
+                                   cfg.crop_min, cfg.crop_max)
+            if cfg.enable_radius_filter:
+                all_mask = filter_radius_outliers(
+                    all_world, all_mask, cfg.radius_min, cfg.radius_max,
+                    cfg.radius_filter_radius)
+            # -- 9. the raw cloud, compacted when it is emitted (or is the
+            #    output); voxelize reads the masked rows otherwise --
+            if emit_raw:
+                raw_points, raw_count = compact(all_world, all_mask,
+                                                total_cap, plain=plain)
+                vox_points = raw_points
+                live = torch.arange(total_cap, dtype=torch.int32,
+                                    device=dev) < raw_count
+            else:
+                raw_count = torch.clamp_max(all_mask.sum(dtype=torch.int32),
+                                            total_cap)
+                vox_points, live = all_world, all_mask
+            # -- 10. cell ids, voxelize --
+            cell_ids = grid.cell_index_clamped(vox_points[:, :3])
+            fresh = None
+            if not cfg.enable_voxel_filter:
+                fused_points, fused_count = raw_points, raw_count
+            elif not cfg.voxel_enable_average:
+                fresh = scatter_occupancy(cell_ids, live, num_cells)
+                fused_points, fused_count = voxelize_occupied(
+                    fresh, grid, output_capacity, plain=plain)
+            elif mode == "rle":
+                fused_points, fused_count, fresh, vox_partials = (
+                    voxelize_average_rle(
+                        vox_points, cell_ids, live, grid, output_capacity,
+                        return_occupancy=True,
+                        partials_capacity=cfg.voxelize_partials_capacity,
+                        return_partials_count=True, plain=plain))
+            else:
+                vox = (voxelize_average_packed if mode == "packed"
+                       else voxelize_average)
+                fused_points, fused_count, fresh = vox(
                     vox_points, cell_ids, live, grid, output_capacity,
-                    return_occupancy=True,
-                    partials_capacity=cfg.voxelize_partials_capacity,
-                    return_partials_count=True, plain=plain))
-        else:
-            vox = (voxelize_average_packed if mode == "packed"
-                   else voxelize_average)
-            fused_points, fused_count, fresh = vox(
-                vox_points, cell_ids, live, grid, output_capacity,
-                return_occupancy=True, plain=plain)
+                    return_occupancy=True, plain=plain)
         # -- 11. occupancy + temporal decay --
-        if fresh is None:
-            fresh = scatter_occupancy(cell_ids, live, num_cells)
-        historic = update_historic_occupancy(
-            state.historic_occupancy, fresh, cfg.voxel_occupancy_lifetime)
-    occupancy_u8 = (occupancy_to_u8(historic) if cfg.emit_occupancy_u8
-                    else torch.zeros((1,), dtype=torch.uint8, device=dev))
+        with profiling.span("fusion.step.occupancy"):
+            if fresh is None:
+                fresh = scatter_occupancy(cell_ids, live, num_cells)
+            historic = update_historic_occupancy(
+                state.historic_occupancy, fresh,
+                cfg.voxel_occupancy_lifetime)
 
-    # -- sparse occupancy blocks for the mapping consumer --
-    if cfg.occupancy_sparse_capacity > 0:
-        si, sw, sc, st = occupancy_bitmap_sparse(
-            historic, cfg.occupancy_sparse_capacity, plain=plain)
-    else:
-        si = torch.zeros((1,), dtype=torch.int32, device=dev)
-        sw = torch.zeros((1, 4), dtype=torch.int32, device=dev)
-        sc = st = torch.zeros((), dtype=torch.int32, device=dev)
+    # -- 12. the u8 grid, the packed bitmap, and sparse occupancy blocks
+    #    for the mapping consumer --
+    with profiling.span("fusion.step.occupancy"):
+        occupancy_u8 = (occupancy_to_u8(historic) if cfg.emit_occupancy_u8
+                        else torch.zeros((1,), dtype=torch.uint8,
+                                         device=dev))
+        if cfg.occupancy_sparse_capacity > 0:
+            si, sw, sc, st = occupancy_bitmap_sparse(
+                historic, cfg.occupancy_sparse_capacity, plain=plain)
+        else:
+            si = torch.zeros((1,), dtype=torch.int32, device=dev)
+            sw = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+            sc = st = torch.zeros((), dtype=torch.int32, device=dev)
+        occupancy_bits = occupancy_bitmap(historic)
 
     new_state = EngineState(rollbuffer=rb, historic_occupancy=historic,
                             frame_index=state.frame_index + 1,
@@ -500,7 +538,7 @@ def fusion_step(state: EngineState,
         fused_points=fused_points, fused_count=fused_count,
         raw_points=raw_points, raw_count=raw_count,
         occupancy_u8=occupancy_u8,
-        occupancy_bits=occupancy_bitmap(historic),
+        occupancy_bits=occupancy_bits,
         seq_selected_count=sel.point_count,
         vox_partials_count=vox_partials,
         occupancy_sparse_idx=si, occupancy_sparse_words=sw,
@@ -552,6 +590,22 @@ def build_packet_step(cfg: FusionConfig, grid: VoxelGrid,
     return step
 
 
+def _link_counter(depth_bits) -> str:
+    """The counter of a frame's depth payload: ``fusion.link.iframes``
+    (spatial; on a heterogeneous rig, every group coded),
+    ``.pframes`` (classic P-frame), ``.p4frames`` or ``.raw_frames``."""
+    if isinstance(depth_bits, tuple):
+        kind = ("raw_frames" if any(b is None for b in depth_bits)
+                else "iframes")
+    elif depth_bits is None:
+        kind = "raw_frames"
+    elif depth_bits == "p4":
+        kind = "p4frames"
+    else:
+        kind = "iframes" if depth_bits > 0 else "pframes"
+    return "fusion.link." + kind
+
+
 def _write_raw_pairs(tail: np.ndarray, depth: np.ndarray) -> None:
     """Raw u16 depth as little-endian pairs into the packet's u32 ``tail``
     (an odd last pixel in the low half of a last word)."""
@@ -601,6 +655,12 @@ class FusionEngine:
     :class:`MappingPipeline` on the engine's device, for
     :meth:`segment_and_track`; a caller may also set :attr:`mapping`
     itself (to drive it from an ``AsyncMappingWorker``).
+
+    With the tracer on (:mod:`utils.profiling`), the staging, the encode,
+    the packet copy, the waits on the encode and on a staging slot, and
+    the step's stages are spans of the frame :attr:`frame_id` counts, and
+    the link's frames and bytes and the lidar points staged and dropped
+    are counted.
     """
 
     def __init__(self, cfg: FusionConfig, device,
@@ -617,6 +677,7 @@ class FusionEngine:
         self.device = torch.device(device)
         self.grid = grid or VoxelGrid.from_config(cfg)
         self.output_capacity = _output_capacity(cfg, self.grid, None)
+        self.partials_capacity = resolved_partials_capacity(cfg, self.grid)
         self._fusion_step = build_fusion_step(cfg, self.grid,
                                               self.output_capacity)
         self.state = initial_state(cfg, self.grid, self.device)
@@ -672,6 +733,8 @@ class FusionEngine:
         self.ps_threshold = cfg.point_sequence_filter_threshold
         self.pipeline_depth = pipeline_depth
         self._pending = None        # future of the frame in flight
+        # the staging counter: the id of the frame now being staged
+        self.frame_id = -1
         self._worker = self._copy_stream = None
         if pipeline_depth:
             self._worker = concurrent.futures.ThreadPoolExecutor(
@@ -698,8 +761,12 @@ class FusionEngine:
         self._pkt_flip ^= 1
         event = self._copied[self._pkt_flip]
         if event is not None:
-            event.synchronize()
+            # the copy of the frame before this one out of that packet
+            with profiling.span("fusion.engine.wait_slot", self.frame_id - 1):
+                event.synchronize()
+        self.frame_id += 1
         self._pkt = self._packets[self._pkt_flip]
+        self._pkt.frame = self.frame_id
         self._pkt.lidar_exc_count = 0
         self._pkt.lidar_dropped = 0
         self._depth_host = self._depth_hosts[self._pkt_flip]
@@ -717,13 +784,14 @@ class FusionEngine:
     def add_depthmap(self, slot: int, depth_u16: np.ndarray,
                      intrinsics, tf_world: np.ndarray,
                      tf_crop: np.ndarray):
-        np.copyto(self._depth_slot(slot), depth_u16, casting="same_kind")
-        self._depth_filled[slot] = True
-        self._pkt.intr[slot] = np.asarray(
-            intrinsics.as_array() if hasattr(intrinsics, "as_array")
-            else intrinsics, np.float32)
-        self._pkt.tf_world[slot] = tf_world
-        self._pkt.tf_crop[slot] = tf_crop
+        with profiling.span("fusion.engine.stage", self.frame_id):
+            np.copyto(self._depth_slot(slot), depth_u16, casting="same_kind")
+            self._depth_filled[slot] = True
+            self._pkt.intr[slot] = np.asarray(
+                intrinsics.as_array() if hasattr(intrinsics, "as_array")
+                else intrinsics, np.float32)
+            self._pkt.tf_world[slot] = tf_world
+            self._pkt.tf_crop[slot] = tf_crop
 
     def add_point_sequence(self, points_xyz: np.ndarray, sec: int, nsec: int,
                            tf_move: np.ndarray):
@@ -732,62 +800,68 @@ class FusionEngine:
         are dropped. With delta-coded staging a sequence is truncated at
         its first point whose wide deltas no longer fit the exception
         budget (counted in the packet's ``lidar_dropped``)."""
-        n = min(len(points_xyz), self._stage_cap - self._seq_fill)
-        if n <= 0 or self._num_seqs >= self._seq_stage_cap:
-            return
-        pkt = self._pkt
-        qs = self.layout.seq_quant_step
-        if self.layout.lidar_delta:
-            # 3 x 4-bit zigzag deltas a point in one u16, the raw first
-            # point a sequence, wide deltas on the exception list
-            q = np.clip(np.rint(
-                np.asarray(points_xyz[:n], np.float32)[:, :3] / qs
-                + 32768.0), 0, 65535).astype(np.int32)
-            d = np.zeros((n, 3), np.int32)
-            if n > 1:
-                d[1:] = np.diff(q, axis=0)
-            wide = np.abs(d) > 7
-            fill = pkt.lidar_exc_count
-            over = fill + np.cumsum(wide.sum(axis=1)) \
-                > self.layout.lidar_exc_cap
-            if over.any():
-                n_new = int(np.argmax(over))
-                pkt.lidar_dropped += n - n_new
-                if n_new <= 0:
-                    return
-                n, q, d, wide = n_new, q[:n_new], d[:n_new], wide[:n_new]
-            sl = slice(self._seq_fill, self._seq_fill + n)
-            zz = np.where(d >= 0, d << 1, ((-d) << 1) - 1)
-            codes = np.where(wide, 0, zz).astype(np.uint16)
-            pkt.seq_points_d[sl] = (codes[:, 0] | (codes[:, 1] << 4)
-                                    | (codes[:, 2] << 8))
-            pkt.seq_first[self._num_seqs] = q[0].astype(np.uint16)
-            ri, ci = np.nonzero(wide)
-            ne = len(ri)
-            if ne:
-                pkt.lidar_exc_idx[fill:fill + ne] = \
-                    ((self._seq_fill + ri) * 3 + ci).astype(np.uint32)
-                pkt.lidar_exc_zz[fill:fill + ne] = \
-                    zz[ri, ci].astype(np.uint32)
-                pkt.lidar_exc_count = fill + ne
-        else:
-            sl = slice(self._seq_fill, self._seq_fill + n)
-            if qs:
-                # 3 x u16 link quantization (error <= qs/2, span
-                # +-32768*qs)
-                q = np.asarray(points_xyz[:n], np.float32)[:, :3] / qs \
-                    + 32768.0
-                np.clip(np.rint(q), 0, 65535, out=q)
-                pkt.seq_points_q[sl] = q.astype(np.uint16)
+        with profiling.span("fusion.engine.stage", self.frame_id):
+            total = len(points_xyz)
+            n = min(total, self._stage_cap - self._seq_fill)
+            if n <= 0 or self._num_seqs >= self._seq_stage_cap:
+                profiling.count("fusion.ingest.lidar_dropped", total)
+                return
+            pkt = self._pkt
+            qs = self.layout.seq_quant_step
+            if self.layout.lidar_delta:
+                # 3 x 4-bit zigzag deltas a point in one u16, the raw first
+                # point a sequence, wide deltas on the exception list
+                q = np.clip(np.rint(
+                    np.asarray(points_xyz[:n], np.float32)[:, :3] / qs
+                    + 32768.0), 0, 65535).astype(np.int32)
+                d = np.zeros((n, 3), np.int32)
+                if n > 1:
+                    d[1:] = np.diff(q, axis=0)
+                wide = np.abs(d) > 7
+                fill = pkt.lidar_exc_count
+                over = fill + np.cumsum(wide.sum(axis=1)) \
+                    > self.layout.lidar_exc_cap
+                if over.any():
+                    n_new = int(np.argmax(over))
+                    pkt.lidar_dropped += n - n_new
+                    if n_new <= 0:
+                        profiling.count("fusion.ingest.lidar_dropped", total)
+                        return
+                    n, q, d, wide = n_new, q[:n_new], d[:n_new], wide[:n_new]
+                sl = slice(self._seq_fill, self._seq_fill + n)
+                zz = np.where(d >= 0, d << 1, ((-d) << 1) - 1)
+                codes = np.where(wide, 0, zz).astype(np.uint16)
+                pkt.seq_points_d[sl] = (codes[:, 0] | (codes[:, 1] << 4)
+                                        | (codes[:, 2] << 8))
+                pkt.seq_first[self._num_seqs] = q[0].astype(np.uint16)
+                ri, ci = np.nonzero(wide)
+                ne = len(ri)
+                if ne:
+                    pkt.lidar_exc_idx[fill:fill + ne] = \
+                        ((self._seq_fill + ri) * 3 + ci).astype(np.uint32)
+                    pkt.lidar_exc_zz[fill:fill + ne] = \
+                        zz[ri, ci].astype(np.uint32)
+                    pkt.lidar_exc_count = fill + ne
             else:
-                native.stage_points_xyz(
-                    np.asarray(points_xyz[:n], np.float32),
-                    pkt.seq_points[sl])
-        i = self._num_seqs
-        pkt.seq_sec[i], pkt.seq_nsec[i], pkt.seq_count[i] = sec, nsec, n
-        pkt.seq_tf[i] = np.asarray(tf_move, np.float32)
-        self._num_seqs += 1
-        self._seq_fill += n
+                sl = slice(self._seq_fill, self._seq_fill + n)
+                if qs:
+                    # 3 x u16 link quantization (error <= qs/2, span
+                    # +-32768*qs)
+                    q = np.asarray(points_xyz[:n], np.float32)[:, :3] / qs \
+                        + 32768.0
+                    np.clip(np.rint(q), 0, 65535, out=q)
+                    pkt.seq_points_q[sl] = q.astype(np.uint16)
+                else:
+                    native.stage_points_xyz(
+                        np.asarray(points_xyz[:n], np.float32),
+                        pkt.seq_points[sl])
+            i = self._num_seqs
+            pkt.seq_sec[i], pkt.seq_nsec[i], pkt.seq_count[i] = sec, nsec, n
+            pkt.seq_tf[i] = np.asarray(tf_move, np.float32)
+            self._num_seqs += 1
+            self._seq_fill += n
+            profiling.count("fusion.ingest.lidar_points", n)
+            profiling.count("fusion.ingest.lidar_dropped", total - n)
 
     # --- the frame step ---
     def _finish_packet(self, now_seconds, tf_world_move, tf_crop_move):
@@ -816,9 +890,17 @@ class FusionEngine:
         every ``depth_codec_keyframe_interval`` frames, otherwise a p4
         P-frame first, then a classic P-frame, then the spatial I-frame
         when an encoder declines; raw depth when every width overflows
-        the exception budget. Returns ``(packet words, depth_bits)``."""
-        if self._hetero:
-            return self._encode_hetero(pkt, depth_host, scalars)
+        the exception budget; on a heterogeneous rig
+        :meth:`_encode_hetero`. Returns ``(packet words, depth_bits)``."""
+        with profiling.span("fusion.engine.encode", pkt.frame):
+            encode = (self._encode_hetero if self._hetero
+                      else self._encode_homogeneous)
+            words, depth_bits = encode(pkt, depth_host, scalars)
+        profiling.count(_link_counter(depth_bits))
+        return words, depth_bits
+
+    def _encode_homogeneous(self, pkt: HostPacket, depth_host, scalars):
+        """:meth:`_encode` on a homogeneous rig."""
         cfg = self.cfg
         depth_bits, exc_count = None, 0
         pkt_out = dict(words=pkt.tail, row_first=pkt.row_first,
@@ -855,6 +937,8 @@ class FusionEngine:
                 enc4, curr_q = res4
                 exc_count = int(enc4["exc_count"])
                 self.last_p4_spilled = enc4["spilled"]
+                profiling.count("fusion.link.p4_spilled_groups",
+                                enc4["spilled"])
                 depth_bits = "p4"
             elif res is not None:
                 enc, p_bits, curr_q = res
@@ -893,6 +977,7 @@ class FusionEngine:
             self._last_bits = depth_bits
         if depth_bits is None and self._codec:
             _write_raw_pairs(pkt.tail, depth_host)
+        profiling.count("fusion.link.exceptions", exc_count)
         pkt.set_scalars(exc_count, *scalars)
         return pkt.view(depth_bits), depth_bits
 
@@ -926,6 +1011,7 @@ class FusionEngine:
             if bits_g is None:
                 _write_raw_pairs(pkt.tail[tail_off:], d_g)
             pkt.buf[lo.off_gmeta + gi] = np.uint32(exc_count_g)
+            profiling.count("fusion.link.exceptions", exc_count_g)
             bits.append(bits_g)
             tail_off += lo.group_tail_words(gi, bits_g)
             exc_off += cap_g
@@ -940,15 +1026,17 @@ class FusionEngine:
         Returns ``(device packet, event or None, depth_bits)``: with a side
         copy stream the step must wait on the event first."""
         words, depth_bits = self._encode(pkt, depth_host, scalars)
-        src = pkt.tensor[:len(words)]
-        if self.device.type != "cuda":
-            return src.clone(), None, depth_bits
-        stream = (self._copy_stream if self._copy_stream is not None
-                  else torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            packet = src.to(self.device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
+        profiling.count("fusion.link.packet_bytes", len(words) * 4)
+        with profiling.span("fusion.engine.put", pkt.frame):
+            src = pkt.tensor[:len(words)]
+            if self.device.type != "cuda":
+                return src.clone(), None, depth_bits
+            stream = (self._copy_stream if self._copy_stream is not None
+                      else torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                packet = src.to(self.device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
         self._copied[flip] = event
         return packet, (event if self._copy_stream is not None
                         else None), depth_bits
@@ -964,21 +1052,45 @@ class FusionEngine:
         :meth:`process`."""
         if self.pipeline_depth:
             raise RuntimeError("upload() is the pipeline_depth=0 path")
+        packet, bits = self._put_staged(now_seconds, tf_world_move,
+                                        tf_crop_move)
+        with profiling.span("fusion.step.unpack", self.frame_id - 1):
+            return unpack_packet(packet, self.layout, bits)
+
+    def _put_staged(self, now_seconds, tf_world_move, tf_crop_move):
+        """The synchronous path's encode and copy of the staged frame;
+        the staging area is cleared. Returns ``(device packet,
+        depth_bits)``."""
         scalars = self._finish_packet(now_seconds, tf_world_move,
                                       tf_crop_move)
         packet, _, bits = self._encode_and_put(
             self._pkt, self._depth_host, scalars, self._pkt_flip)
         self.clear()
         self.last_frame_bits = bits
-        return unpack_packet(packet, self.layout, bits)
+        return packet, bits
 
     def step(self, inp: FrameInputs, depth_bits=None) -> FrameOutputs:
         """Run the frame step on uploaded inputs and advance the state."""
         self.state, out = self._fusion_step(self.state, inp, depth_bits)
         return out
 
+    def _run_packet(self, packet: torch.Tensor, bits) -> FrameOutputs:
+        """Unpack the frame before the staged one from its device packet
+        and run its step."""
+        frame = self.frame_id - 1
+        with profiling.span("fusion.step", frame):
+            with profiling.span("fusion.step.unpack"):
+                inp = unpack_packet(packet, self.layout, bits)
+            out = self.step(inp, bits)
+        profiling.count("fusion.frames")
+        profiling.gauge("fusion.voxelize.partials_capacity",
+                        self.partials_capacity)
+        return out
+
     def _step_put(self, fut) -> FrameOutputs:
-        packet, event, bits = fut.result()
+        # the frame in flight is the one before the staged one
+        with profiling.span("fusion.engine.wait_encode", self.frame_id - 1):
+            packet, event, bits = fut.result()
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -986,7 +1098,7 @@ class FusionEngine:
             # from reuse until the step's work on this stream is done
             packet.record_stream(stream)
         self.last_frame_bits = bits
-        return self.step(unpack_packet(packet, self.layout, bits), bits)
+        return self._run_packet(packet, bits)
 
     def process(self, now_seconds: float,
                 tf_world_move: Optional[np.ndarray] = None,
@@ -996,8 +1108,8 @@ class FusionEngine:
         waiting for the device: this frame's, or with ``pipeline_depth=1``
         the previous frame's (``None`` on the first call)."""
         if not self.pipeline_depth:
-            inp = self.upload(now_seconds, tf_world_move, tf_crop_move)
-            return self.step(inp, self.last_frame_bits)
+            return self._run_packet(*self._put_staged(
+                now_seconds, tf_world_move, tf_crop_move))
         scalars = self._finish_packet(now_seconds, tf_world_move,
                                       tf_crop_move)
         prev = self._pending

@@ -208,6 +208,8 @@ class HostPacket:
         self.seq_count = i32(lo.off_seq_count, lo.seq_cap)
         self.seq_tf = f32(lo.off_seq_tf, lo.seq_cap * 16, (lo.seq_cap, 4, 4))
         self.seq_points = self.seq_points_q = self.seq_points_d = None
+        # the engine's id of the frame staged in it
+        self.frame = 0
         # staged per frame by the engine (delta-coded lidar only)
         self.lidar_exc_count = 0
         self.lidar_dropped = 0

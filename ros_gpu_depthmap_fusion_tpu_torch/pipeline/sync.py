@@ -1,5 +1,6 @@
-"""Multi-stream message synchronization (a copy of the JAX package's
-``pipeline/sync.py``; pure Python).
+"""Multi-stream message synchronization (the JAX package's
+``pipeline/sync.py``, pure Python, with the messages it discards counted
+in :attr:`ApproximateTimeSynchronizer.dropped`).
 
 Host-side equivalent of the reference's ``ros_topic_sync::AdvancedSyncPolicy``
 wiring (``gpu_depthmap_fusion_component.h:29-62``,
@@ -44,6 +45,9 @@ class ApproximateTimeSynchronizer:
         self.queue_size = queue_size
         self.callback = callback
         self._queues: List[List[Stamped]] = [[] for _ in self.slots]
+        # messages discarded unemitted: queue overflow, stale on the
+        # trigger slot, consumed beside the picked one
+        self.dropped = 0
 
     def push(self, slot: int, stamp: float, data: Any
              ) -> Optional[List[Optional[Stamped]]]:
@@ -51,6 +55,7 @@ class ApproximateTimeSynchronizer:
         q.append(Stamped(stamp, data))
         if len(q) > self.queue_size:
             q.pop(0)
+            self.dropped += 1
         return self._try_emit()
 
     def _try_emit(self) -> Optional[List[Optional[Stamped]]]:
@@ -71,15 +76,21 @@ class ApproximateTimeSynchronizer:
             if best is None and cfg.trigger and not cfg.optional:
                 # trigger slot has no message near t: drop stale messages
                 # older than t - slop and wait
-                self._queues[i] = [m for m in self._queues[i]
-                                   if m.stamp >= t - self.slop]
+                kept = [m for m in self._queues[i]
+                        if m.stamp >= t - self.slop]
+                self.dropped += len(self._queues[i]) - len(kept)
+                self._queues[i] = kept
                 return None
             picked[i] = best
         # consume
         for i, cfg in enumerate(self.slots):
             if cfg.clear:
-                self._queues[i] = [m for m in self._queues[i]
-                                   if m.stamp > t + self.slop]
+                kept = [m for m in self._queues[i]
+                        if m.stamp > t + self.slop]
+                # every message consumed but the one picked is discarded
+                self.dropped += (len(self._queues[i]) - len(kept)
+                                 - (picked[i] is not None))
+                self._queues[i] = kept
             elif picked[i] is not None:
                 self._queues[i] = [m for m in self._queues[i]
                                    if m.stamp > picked[i].stamp - 1e-9 or

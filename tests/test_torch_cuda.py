@@ -456,15 +456,14 @@ def test_fused_unproject_kernel_edges_equal_twin(dev, name):
         assert runs == 0 and valid == 0
 
 
-def test_link_engine_on_card_equals_cpu(dev):
+def _link_rig():
     """``bench.py``'s link combination (p4 with hysteresis, delta-coded
-    lidar) on a small pipelined rig: every output equal on the card and on
-    the CPU."""
+    lidar) on a small rig: its config and ``run(engines)``, which feeds
+    each pipelined engine the same 7 frames and returns each one's
+    ``(outputs, last_frame_bits)`` list."""
     from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
         PinholeIntrinsics)
     from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
-    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
-        FusionEngine)
     from ros_gpu_depthmap_fusion_tpu_torch.utils import native
     if not native.available():
         pytest.skip("native library not built")
@@ -480,34 +479,82 @@ def test_link_engine_on_card_equals_cpu(dev):
         depth_codec_max_exceptions=2048, lidar_link_quant_step=0.002,
         lidar_link_delta=True, occupancy_sparse_capacity=64,
         emit_occupancy_u8=True, emit_raw_points=False)
-    engines = [FusionEngine(cfg, device=dev, pipeline_depth=1),
-               FusionEngine(cfg, device="cpu", pipeline_depth=1)]
-    intr = PinholeIntrinsics.default_for(32, 24)
-    eye = np.eye(4, dtype=np.float32)
-    rng = np.random.default_rng(11)
-    u = np.arange(32)[None, :] + np.zeros((24, 1))
-    t = np.linspace(0, np.pi, 60)
-    arc = np.stack([0.8 * np.cos(t), 0.8 * np.sin(t),
-                    1 + 0.1 * np.sin(5 * t)], -1).astype(np.float32)
-    outs = ([], [])
-    for f in range(7):
-        d = (2000 + 40 * u + 6 * rng.standard_normal((2, 24, 32))) \
-            .astype(np.uint16)
-        d[:, 5:9, 3 * f:3 * f + 6] -= 300
+
+    def run(engines):
+        intr = PinholeIntrinsics.default_for(32, 24)
+        eye = np.eye(4, dtype=np.float32)
+        rng = np.random.default_rng(11)
+        u = np.arange(32)[None, :] + np.zeros((24, 1))
+        t = np.linspace(0, np.pi, 60)
+        arc = np.stack([0.8 * np.cos(t), 0.8 * np.sin(t),
+                        1 + 0.1 * np.sin(5 * t)], -1).astype(np.float32)
+        outs = tuple([] for _ in engines)
+        for f in range(7):
+            d = (2000 + 40 * u + 6 * rng.standard_normal((2, 24, 32))) \
+                .astype(np.uint16)
+            d[:, 5:9, 3 * f:3 * f + 6] -= 300
+            for e, o in zip(engines, outs):
+                for i in range(2):
+                    e.add_depthmap(i, d[i], intr, eye, eye)
+                e.add_point_sequence(arc, sec=1, nsec=f * 33000000,
+                                     tf_move=eye)
+                out = e.process(1.0 + f / 30.0)
+                if out is not None:
+                    o.append((out, e.last_frame_bits))
         for e, o in zip(engines, outs):
-            for i in range(2):
-                e.add_depthmap(i, d[i], intr, eye, eye)
-            e.add_point_sequence(arc, sec=1, nsec=f * 33000000, tf_move=eye)
-            out = e.process(1.0 + f / 30.0)
-            if out is not None:
-                o.append((out, e.last_frame_bits))
-    for e, o in zip(engines, outs):
-        o.append((e.flush(), e.last_frame_bits))
+            o.append((e.flush(), e.last_frame_bits))
+            e.close()
+        return outs
+    return cfg, run
+
+
+def test_link_engine_on_card_equals_cpu(dev):
+    """``bench.py``'s link combination (p4 with hysteresis, delta-coded
+    lidar) on a small pipelined rig: every output equal on the card and on
+    the CPU."""
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        FusionEngine)
+    cfg, run = _link_rig()
+    outs = run([FusionEngine(cfg, device=dev, pipeline_depth=1),
+                FusionEngine(cfg, device="cpu", pipeline_depth=1)])
     assert [b for _, b in outs[0]] == [b for _, b in outs[1]]
     assert "p4" in [b for _, b in outs[0]]
     for (a, _), (b, _) in zip(*outs):
         for k in b._fields:
             assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+
+
+def test_traced_link_engine_on_card(dev):
+    """The tracer on over the same rig pipelined on the card: every engine
+    span, the wait on a staging slot's copy event among them, the link's
+    frame counters adding up to the frames, and the outputs of an
+    untraced run."""
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        FusionEngine)
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import profiling
+    cfg, run = _link_rig()
+    plain = run([FusionEngine(cfg, device=dev, pipeline_depth=1)])[0]
+    profiling.reset()
+    profiling.enable()
+    try:
+        traced = run([FusionEngine(cfg, device=dev, pipeline_depth=1)])[0]
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert {"fusion.engine.stage", "fusion.engine.encode",
+            "fusion.engine.put", "fusion.engine.wait_encode",
+            "fusion.engine.wait_slot", "fusion.step", "fusion.step.unpack",
+            "fusion.step.lidar", "fusion.step.depth",
+            "fusion.step.voxelize", "fusion.step.occupancy"} \
+        <= set(snap["spans"])
+    c = snap["counters"]
+    assert c["fusion.frames"] == 7
+    assert sum(c.get("fusion.link." + k, 0) for k in (
+        "iframes", "pframes", "p4frames", "raw_frames")) == 7
+    for (a, _), (b, _) in zip(traced, plain):
+        for k in b._fields:
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
 
 
 def _bench_like_grid(rng, z, y, x):

@@ -84,6 +84,19 @@ EXCLUDED = {
               "nothing a frame, and the CUDA kernels are built once by "
               "ops/kernels/_build.py"),
     },
+    # the port times its host work with one tracer: spans where the work
+    # happens, and the per-frame report of enable_debug_output
+    "utils/profiling.py": {
+        **{n: ("port", "span") for n in (
+            "MeasureTime", "MeasureTime.begin", "MeasureTime.begin_frame",
+            "MeasureTime.end", "MeasureTime.end_frame",
+            "MeasureTime.section")},
+        "MeasureTime.report": ("port", "report"),
+        **{n: ("port", "report") for n in (
+            "StageTimer", "StageTimer.record", "StageTimer.report",
+            "StageTimer.stage", "StageTimer.summary_us",
+            "REFERENCE_STAGES")},
+    },
 }
 
 

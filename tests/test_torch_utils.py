@@ -3,8 +3,8 @@
 writer writes the same bytes and the reader reads either's files; an
 engine-state checkpoint round-trips and reads the JAX package's npz
 layout; a SLAM session saved by either package restores into the other;
-the profiling timers run on the CPU; the visualization payloads of a
-mapping result equal the JAX package's.
+the tracer and a profiler capture run on the CPU; the visualization
+payloads of a mapping result equal the JAX package's.
 """
 
 import os
@@ -239,31 +239,29 @@ def test_slam_session_restores_across_packages(tmp_path, saver):
 # --- profiling ---------------------------------------------------------------
 
 def test_profiling_on_the_cpu(tmp_path):
+    """``hard_sync``, a ``trace()`` capture, and the tracer's spans,
+    counters and per-frame report (``tests/test_torch_tracing.py`` tests
+    the tracer in full)."""
     profiling.hard_sync("cpu")
     profiling.hard_sync(torch.zeros(3))
-    mt = profiling.MeasureTime(gain=0.5)
-    for _ in range(3):
-        mt.begin_frame()
-        with mt.section("work"):
-            torch.ones(1000).sum()
-        mt.end_frame()
-    assert set(mt.smoothed) == {"work", "__frame__"}
-    assert "work" in mt.report()
-    st = profiling.StageTimer()
-    assert st.stages == profiling.REFERENCE_STAGES
-    x = torch.zeros(4)
-    with st.stage("convert", block=x):
-        x += 1
-    with st.stage("total", block="cpu"):
-        pass
-    us = st.summary_us()
-    assert set(us) == {"convert", "total"} and all(v >= 0 for v in
-                                                   us.values())
-    assert "convert" in st.report()
-    with profiling.trace(str(tmp_path / "tr")) as prof:
-        torch.ones(64).cumsum(0)
+    profiling.reset()
+    profiling.enable()
+    try:
+        with profiling.trace(str(tmp_path / "tr")) as prof:
+            with profiling.span("fusion.step", 0):
+                torch.ones(64).cumsum(0)
+            profiling.count("fusion.frames")
+        snap = profiling.snapshot()
+        text = profiling.report(0)
+    finally:
+        profiling.enable(False)
+        profiling.reset()
     assert prof is not None
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+    assert snap["spans"]["fusion.step"][1] == 1
+    assert snap["spans"]["fusion.step"][0] > 0
+    assert snap["counters"] == {"fusion.frames": 1}
+    assert "fusion.step" in text
 
 
 # --- viz ---------------------------------------------------------------------
