@@ -24,7 +24,15 @@ each:
    within capacity; the last frame re-run with the plain twins from the same state, and a
    ``pipeline_depth=0`` engine on the same frames, must give equal
    outputs; so must a small rig of this configuration on the card and on
-   the CPU;
+   the CPU; the lidar stages' kernel pair (``state/rollbuffer.py
+   advance_and_gather``, two launches a step on every path that runs the
+   engine step) is held to its plain twin bit for bit, the new buffer,
+   the three gathered outputs and the selection, on every step of the
+   ``pipeline_depth=0`` run (the lidar window full from frame
+   ``RECORD_FRAME`` on) and on the edge cases of
+   ``tests/test_torch_cuda.py LIDAR_CASES`` (empty batch and buffer, late
+   stamps, point and sequence overflow, everything expiring, an empty
+   window, a full buffer);
 4. raw link: the engine on the raw depth link (``depth_link_codec="none"``,
    768k partials: the raw series has more level-1 runs), 8 frames, with
    the same launch, plain-twin and small-rig checks;
@@ -74,8 +82,9 @@ each:
    "auto" = "packed"; 512 keypoints, 64 RANSAC hypotheses, BA window 8
    with 4 iterations every 8 keyframes, loop closure with 128): 150
    frames, ATE below 10 cm, a loop-closed ATE, occupied cells, launches a
-   frame 1 / 1 / 1 / 0; host ms a frame of the odometry, the engine and
-   the whole runner, ms a ``run_ba`` and ``close_loops`` call. Then a
+   frame 1 / 1 / 1 / 0 and the lidar pair's 2; host ms a frame of the
+   odometry, the engine and the whole runner, ms a ``run_ba`` and
+   ``close_loops`` call. Then a
    frame pair through ``detect_and_describe``, ``match`` and
    ``ransac_pose`` (the same 64 sampled triples) and one captured BA
    window, on the card and on the CPU port: keypoints, descriptors and
@@ -125,7 +134,9 @@ each:
 
 Then one JSON line with the kernels' names, sources, launch counts (and
 launches per frame, also by path), errors, device, call, twin, bound and
-library times (also by timed call site), the ``nvidia-smi`` line, and,
+library times (also by timed call site), the lidar pair's (``[lidar
+kernels]``: device, call, twin and bound ms and launches a frame by path,
+on the recorded link frame's inputs), the ``nvidia-smi`` line, and,
 last, ``{"ok": true, "device": ...}``. Any failure is an uncaught exception and a non-zero exit; without a
 CUDA device it exits non-zero before printing any result.
 
@@ -180,13 +191,16 @@ ENGINE_KERNELS = ("segreduce", "flying_pixels", "compact")
 KERNELS = ENGINE_KERNELS + ("fused_unproject_rle",)
 
 
-def _launches(segreduce, flying_pixels, compact):
+def _launches(segreduce, flying_pixels, compact, lidar_stages=2):
     return {"segreduce": segreduce, "flying_pixels": flying_pixels,
-            "compact": compact, "fused_unproject_rle": 0}
+            "compact": compact, "fused_unproject_rle": 0,
+            "lidar_stages": lidar_stages}
 
 
 # launches of each kernel in one engine step, by path (kernel 4 is on
-# none). Split-domain step: level 1 + level 2, one filter, the sparse
+# none; the lidar stages' pair, 2, on every path that runs the engine
+# step, and not in the sharded engine, which keeps its own calls).
+# Split-domain step: level 1 + level 2, one filter, the sparse
 # blocks. Non-split step: the raw cloud's compaction, then rle (level 1 +
 # level 2), packed (one reduction of the sorted stream), exact (the run
 # ends compacted) or occupied (the occupied ids compacted); a
@@ -208,9 +222,10 @@ EXPECTED = {
     # filter, one reduction of its sorted stream, and four compactions (its
     # sequence records, its staged points, its raw cloud, its fused
     # sub-slab)
-    "sharded_1x1": _launches(1, 1, 4),
-    "sharded_1x1_pipelined": _launches(1, 1, 4),
-    "sharded_2x2": _launches(1, 1, 4), "sharded_4x1": _launches(1, 1, 4),
+    "sharded_1x1": _launches(1, 1, 4, 0),
+    "sharded_1x1_pipelined": _launches(1, 1, 4, 0),
+    "sharded_2x2": _launches(1, 1, 4, 0),
+    "sharded_4x1": _launches(1, 1, 4, 0),
 }
 REPLACES = {
     "segreduce": "ros_gpu_depthmap_fusion_tpu/ops/pallas/segreduce.py:233",
@@ -667,6 +682,90 @@ def keep_last(box):
     def tap(*step):
         box[:] = [step]
     return tap
+
+
+def lidar_tap(box):
+    """A step tap that keeps every step's rollbuffer (the state is never
+    modified in place) and a copy of its lidar inputs, as the keyword
+    arguments of ``advance_and_gather`` but the buffer."""
+    def tap(state, inp, bits):
+        def c(x):
+            return x.clone()
+        box.append((state.rollbuffer, dict(
+            seq_batch=type(inp.seq_batch)(*map(c, inp.seq_batch)),
+            ps_threshold=c(inp.ps_threshold),
+            roll_min=(c(inp.roll_min_sec), c(inp.roll_min_nsec)),
+            now=(c(inp.now_sec), c(inp.now_nsec)),
+            tf_world_move=c(inp.tf_world_move),
+            tf_crop_move=c(inp.tf_crop_move))))
+    return tap
+
+
+def lidar_equal(torch, rbmod, rb, kw, size, cap, what):
+    """The lidar kernel pair and its plain twin on the same buffer and
+    inputs: the new buffer, the gathered world and crop rows and
+    validity, and the selection, bit for bit. Returns the kernels'."""
+    got = rbmod.advance_and_gather(rb, filter_size=size, capacity=cap, **kw)
+    ref = rbmod.advance_and_gather(rb, filter_size=size, capacity=cap,
+                                   plain=True, **kw)
+    for part, a, b in (("buffer", got[0], ref[0]),
+                       ("gathered", got[1], ref[1]),
+                       ("selection", got[2], ref[2])):
+        for k, (x, y) in enumerate(zip(a, b)):
+            if x.dtype != y.dtype or x.shape != y.shape \
+                    or not torch.equal(x, y):
+                raise AssertionError(f"{what}: {part}[{k}] of the lidar "
+                                     "kernels differs from the twin")
+    return got
+
+
+def lidar_phase(torch, rbmod, cfg, taps, gpu):
+    """The lidar kernel pair against its twin on every tapped step of the
+    link run and on ``LIDAR_CASES``; returns the recorded frame's tap."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_cuda import LIDAR_CASES, lidar_case
+    size = cfg.point_sequence_filter_size
+    cap = cfg.rollbuffer_point_capacity
+    window = []
+    for f, (rb, kw) in enumerate(taps):
+        _, (_, _, valid), sel = lidar_equal(torch, rbmod, rb, kw, size, cap,
+                                            f"link frame {f}")
+        window.append((int(sel.seq_count), int(sel.point_count),
+                       int(valid.sum())))
+    if min(w[1] for w in window[RECORD_FRAME:]) <= 0:
+        raise AssertionError(f"link: lidar window {window} empty after "
+                             f"frame {RECORD_FRAME}")
+    n_edge = 0
+    for name in LIDAR_CASES:
+        rb, c_cap, c_size, frames = lidar_case(name, "cuda")
+        for f, kw in enumerate(frames):
+            rb = lidar_equal(torch, rbmod, rb, kw, c_size, c_cap,
+                             f"lidar case {name} frame {f}")[0]
+            n_edge += 1
+    print(f"[lidar] kernel pair == plain twin bit for bit (new buffer, "
+          f"world, crop, valid, selection): {len(taps)} link steps "
+          f"(pipeline_depth=0; window at frame {RECORD_FRAME}: "
+          f"{window[RECORD_FRAME][0]} sequences, "
+          f"{window[RECORD_FRAME][1]} points, {window[RECORD_FRAME][2]} "
+          f"valid; from there {min(w[1] for w in window[RECORD_FRAME:])}-"
+          f"{max(w[1] for w in window[RECORD_FRAME:])} points) and "
+          f"{n_edge} steps of {len(LIDAR_CASES)} edge cases "
+          f"({', '.join(LIDAR_CASES)}) | {gpu}", flush=True)
+    return taps[RECORD_FRAME]
+
+
+def lidar_work(rb, kw, cap):
+    """Bytes the lidar kernel pair must move (each input read once, each
+    output written once): the buffer read and written, the staged batch
+    read, the gathered rows and the window's composed transforms
+    written."""
+    p_cap, s_cap = rb.point_capacity, rb.seq_capacity
+    sb = kw["seq_batch"]
+    row = 16 + 1 + 4                       # points, mask, seq_idx
+    seq = 4 * 4 + 64                       # sec, nsec, start, count, tf
+    return (2 * p_cap * row + 2 * s_cap * seq
+            + sb.points.shape[0] * (16 + 4) + sb.seq_sec.shape[0] * seq
+            + cap * (16 + 16 + 1) + 2 * s_cap * 64)
 
 
 def replay_plain(engmod, eng, tapped):
@@ -1534,10 +1633,12 @@ def sharded_rank(rank, shape, frames, opts):
         ShardedFusionEngine)
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline import engine as engmod
     from ros_gpu_depthmap_fusion_tpu_torch.slam import ba
+    from ros_gpu_depthmap_fusion_tpu_torch.state import rollbuffer as rbmod
     mesh = make_mesh(*shape, device=torch.device("cuda",
                                                  rank % opts["cards"]))
     kmods = {"segreduce": segreduce, "flying_pixels": flying_pixels,
-             "compact": compact, "fused_unproject_rle": fused_unproject_rle}
+             "compact": compact, "fused_unproject_rle": fused_unproject_rle,
+             "lidar_stages": rbmod}
     record_mods = [("segreduce", voxelize, "segreduce"),
                    ("flying_pixels", sharded, "filter_flying_pixels"),
                    ("compact", mask_ops, "compact_rows")]
@@ -1920,10 +2021,12 @@ def main():
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
         _build, compact, flying_pixels, fused_unproject_rle, segreduce)
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline import engine as engmod
+    from ros_gpu_depthmap_fusion_tpu_torch.state import rollbuffer as rbmod
     from ros_gpu_depthmap_fusion_tpu_torch.utils import native
 
     kmods = {"segreduce": segreduce, "flying_pixels": flying_pixels,
-             "compact": compact, "fused_unproject_rle": fused_unproject_rle}
+             "compact": compact, "fused_unproject_rle": fused_unproject_rle,
+             "lidar_stages": rbmod}
     wrappers = kernel_wrappers()
 
     # -- 1. environment --
@@ -1996,9 +2099,10 @@ def main():
                          "plain-twin step")
     del last_step[:]
     sync = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=0)
-    s_outs, s_bits, sync_ms, _, _ = run_engine(torch, sync, scene, intr,
-                                               LINK_FRAMES, kmods,
-                                               EXPECTED["link"])
+    lidar_taps = []
+    s_outs, s_bits, sync_ms, _, _ = run_engine(
+        torch, sync, scene, intr, LINK_FRAMES, kmods, EXPECTED["link"],
+        step_tap=lidar_tap(lidar_taps))
     if s_bits != bits:
         raise AssertionError(f"link: sync frame kinds {s_bits} != {bits}")
     for f, (a, b) in enumerate(zip(outs, s_outs)):
@@ -2007,13 +2111,16 @@ def main():
     del sync, s_outs
     sm_bits = small_rig_equal(torch, engmod, link_config, FusionConfig,
                               transforms, PinholeIntrinsics, 1, "link")
+    lidar_rec = lidar_phase(torch, rbmod, cfg, lidar_taps, gpu)
+    del lidar_taps
     enc_ms = [e[3] for e in encodes[:LINK_FRAMES]]
     pkt_kb = [4 * e[2] / 1e3 for e in encodes[:LINK_FRAMES]]
     n_i = sum(1 for b in bits if b != "p4")
     print(f"[link] bench.py:120-182 as written, pipeline_depth=1, "
           f"{LINK_FRAMES} frames + flush: {link_ms:.2f} ms/frame "
           f"(frames 4.., ends with a synchronize; pipeline_depth=0: "
-          f"{sync_ms:.2f}) | host process() median "
+          f"{sync_ms:.2f}, its steps tapped for the lidar check) | host "
+          f"process() median "
           f"{float(np.median(host_ms[4:])):.2f} ms (step enqueue "
           f"{float(np.median(step_ms[4:])):.2f}), encode median "
           f"{float(np.median(enc_ms[4:])):.2f} ms (I-frame "
@@ -2109,6 +2216,50 @@ def main():
     for path, per_kernel in sharded_sites.items():
         for name, r in per_kernel.items():
             sites[name][path] = r
+
+    # the steps each path ran
+    steps = {"link": LINK_FRAMES, "raw": RAW_FRAMES,
+             "publish": PUBLISH_FRAMES, "publish_sync": PUBLISH_FRAMES,
+             "publish_packed": PUBLISH_FRAMES, "publish_exact": 2,
+             "publish_occupied": 2, "hetero": HETERO_FRAMES,
+             "hetero_sync": HETERO_FRAMES, "hafen": PRESET_FRAMES,
+             "office": PRESET_FRAMES, "tum": TUM_FRAMES,
+             "tum_gt": TUM_GT_FRAMES, "sharded_1x1": SHARDED_FRAMES,
+             "sharded_1x1_pipelined": SHARDED_FRAMES,
+             "sharded_2x2": SHARDED_FRAMES}
+    # the lidar pair on the recorded link frame's buffer and inputs,
+    # beside its twin (the five calls it replaces)
+    rb, kw = lidar_rec
+    l_size = cfg.point_sequence_filter_size
+    l_cap = cfg.rollbuffer_point_capacity
+
+    def lidar(plain=False):
+        return rbmod.advance_and_gather(rb, filter_size=l_size,
+                                        capacity=l_cap, plain=plain, **kw)
+    l_ms, l_acts = device_profile(torch, lidar)
+    l_call = cuda_ms(torch, lidar)
+    t_ms, t_acts = device_profile(torch, lambda: lidar(True))
+    t_call = cuda_ms(torch, lambda: lidar(True))
+    l_bound, l_bound_by = roofline(lidar_work(rb, kw, l_cap), 0)
+    l_paths = {path: by_path[path]["lidar_stages"] / n
+               for path, n in steps.items()}
+    lidar_res = dict(
+        name="lidar_stages", route="cuda",
+        source="ros_gpu_depthmap_fusion_tpu_torch/csrc/lidar_stages.cu",
+        replaces=None, ms=l_ms, device_activities=l_acts, call_ms=l_call,
+        plain_ms=t_ms, plain_device_activities=t_acts, plain_call_ms=t_call,
+        bound_ms=l_bound, bound_by=l_bound_by,
+        launches_per_frame_by_path=l_paths)
+    print(f"[lidar kernels] advance_and_gather on link frame "
+          f"{RECORD_FRAME}'s buffer and inputs ({rb.point_capacity} rows, "
+          f"{rb.seq_capacity} sequence slots, "
+          f"{kw['seq_batch'].points.shape[0]} staged points): device ms "
+          f"{l_ms:.4f} ({l_acts:g} device activities a call) | call_ms "
+          f"{l_call:.4f} | bound_ms {l_bound:.4f} ({l_bound_by}, "
+          f"{l_bound / l_ms:.3f} of the bound reached) | twin: device ms "
+          f"{t_ms:.4f} ({t_acts:g} device activities), call_ms {t_call:.4f}"
+          f" | launches a frame by path {l_paths} | {gpu}", flush=True)
+    del lidar_rec, rb, kw
 
     # the publish step of each mode, whole, from its tapped state: device
     # ms and device activities a step, and CUDA events around one step
@@ -2211,15 +2362,6 @@ def main():
 
     # the link run's numbers at the top level (launches: its counts), and
     # per path the launches a frame and, where timed, the call site's
-    steps = {"link": LINK_FRAMES, "raw": RAW_FRAMES,
-             "publish": PUBLISH_FRAMES, "publish_sync": PUBLISH_FRAMES,
-             "publish_packed": PUBLISH_FRAMES, "publish_exact": 2,
-             "publish_occupied": 2, "hetero": HETERO_FRAMES,
-             "hetero_sync": HETERO_FRAMES, "hafen": PRESET_FRAMES,
-             "office": PRESET_FRAMES, "tum": TUM_FRAMES,
-             "tum_gt": TUM_GT_FRAMES, "sharded_1x1": SHARDED_FRAMES,
-             "sharded_1x1_pipelined": SHARDED_FRAMES,
-             "sharded_2x2": SHARDED_FRAMES}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     launches_per_frame=per_frame[name],
@@ -2234,12 +2376,12 @@ def main():
                            for path, r in sites.get(name, {}).items()})
                for name in KERNELS]
     for path, n in steps.items():
-        for name in ENGINE_KERNELS:
+        for name in ENGINE_KERNELS + ("lidar_stages",):
             if EXPECTED[path][name] and by_path[path][name] <= 0:
                 raise AssertionError(f"{path}: {name} was not launched")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched: {kernels}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "lidar_stages": lidar_res}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

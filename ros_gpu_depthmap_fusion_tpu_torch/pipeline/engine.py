@@ -3,8 +3,8 @@
 Per frame, in the reference's order (``processDepthmaps``,
 ``src/gpu_depthmap_fusion_component.cpp:92-515``):
 
-    1. filter new point sequences        (cpp:166)
-    2. insert into the rollbuffer        (cpp:168)
+    1. filter new point sequences        (cpp:166)      1-5: the lidar
+    2. insert into the rollbuffer        (cpp:168)      kernel pair
     3. expire old sequences              (cpp:185)
     4. select the aggregation timespan   (cpp:194)
     5. gather + transform the selection  (cpp:199-203)
@@ -64,8 +64,6 @@ from ros_gpu_depthmap_fusion_tpu_torch.ops.mask_ops import (
     compact, crop_points)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.radius import (
     filter_radius_outliers)
-from ros_gpu_depthmap_fusion_tpu_torch.ops.stencil import (
-    filter_point_sequence)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.unproject import (
     unproject_depthmaps)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import (
@@ -348,8 +346,8 @@ def fusion_step(state: EngineState,
     of per-group payloads and ``depth_bits`` a tuple of per-group ``None``
     (raw) or ``B > 0`` (an I-frame).
 
-    ``plain=True`` runs the plain PyTorch twins of the three kernels even
-    on CUDA tensors (the on-card reference the kernels are checked
+    ``plain=True`` runs the plain PyTorch twins of the kernels even on
+    CUDA tensors (the on-card reference the kernels are checked
     against); otherwise each kernel wrapper launches its CUDA kernel for
     CUDA tensors and its twin for CPU tensors.
     """
@@ -357,27 +355,18 @@ def fusion_step(state: EngineState,
     n_depth = cfg.depthmaps_total_elements
     sel_cap = cfg.rollbuffer_point_capacity
     dev = state.historic_occupancy.device
-    rb = state.rollbuffer
-    sb = inp.seq_batch
 
-    # -- 1. filter new point sequences (sensor frame) --
+    # -- 1-5. filter new point sequences (sensor frame), rollbuffer
+    #    insert, expiry, selection, gather + transform: the kernel pair of
+    #    csrc/lidar_stages.cu (its twin on CPU tensors or plain=True) --
     with profiling.span("fusion.step.lidar"):
-        staged = torch.arange(sb.points.shape[0], dtype=torch.int32,
-                              device=dev) < sb.num_points
-        seq_mask = filter_point_sequence(
-            sb.points, staged, sb.num_points, cfg.point_sequence_filter_size,
-            inp.ps_threshold)
-
-        # -- 2-5. rollbuffer insert, expiry, selection, gather + transform --
-        rb, _ = rbmod.insert_sequences(
-            rb, sb.points, seq_mask, sb.seq_idx, sb.seq_sec, sb.seq_nsec,
-            sb.seq_count, sb.seq_tf_move, sb.num_points, sb.num_seqs)
-        rb = rbmod.roll(rb, inp.roll_min_sec, inp.roll_min_nsec)
-        sel = rbmod.select_timespan(
-            rb, inp.roll_min_sec, inp.roll_min_nsec, inp.now_sec,
-            inp.now_nsec)
-        seq_world, seq_crop, seq_valid, _ = rbmod.gather_selection(
-            rb, sel, inp.tf_world_move, inp.tf_crop_move, sel_cap)
+        rb, (seq_world, seq_crop, seq_valid), sel = \
+            rbmod.advance_and_gather(
+                state.rollbuffer, inp.seq_batch, inp.ps_threshold,
+                cfg.point_sequence_filter_size,
+                (inp.roll_min_sec, inp.roll_min_nsec),
+                (inp.now_sec, inp.now_nsec), inp.tf_world_move,
+                inp.tf_crop_move, sel_cap, plain=plain)
 
     # -- 6. decode the link, unproject; 7. flying-pixel filter: per
     #    resolution group (one on a homogeneous rig), each group's world,

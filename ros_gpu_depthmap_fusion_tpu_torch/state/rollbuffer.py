@@ -10,6 +10,12 @@ behavioural spec:
 - transform: ``insertSelectedPointSequence`` + ``transformPointSequence``
              (cpp:1509-1581)
 
+The engine step runs the whole chain, with the point-sequence filter of
+the staged batch in front, through :func:`advance_and_gather`: two
+launches of a hand-written CUDA kernel pair (``csrc/lidar_stages.cu``) for
+CUDA tensors, and its plain twin :func:`advance_and_gather_plain`, the five
+calls above, for CPU tensors.
+
 Every array has a static capacity and the live extents are int32 0-d
 tensors on the buffer's device, so no function here waits for the device.
 Sequences are stored contiguous and time-ordered (inserts clamp a late
@@ -19,11 +25,20 @@ modified.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 
 from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
+from ros_gpu_depthmap_fusion_tpu_torch.core.devconst import scalar_f32
+from ros_gpu_depthmap_fusion_tpu_torch.ops.stencil import (
+    filter_point_sequence)
+from ros_gpu_depthmap_fusion_tpu_torch.utils import profiling
+
+#: launches of the CUDA kernels by :func:`advance_and_gather` in this
+#: process
+launches = 0
 
 
 def time_lt(a_sec, a_nsec, b_sec, b_nsec):
@@ -286,6 +301,180 @@ def gather_selection(rb: RollBuffer,
     pc = torch.where(m4, transforms.transform_points_indirect(
         pts, tfs_crop, tf_idx, msk), 0.0)
     return pw, pc, msk, sel.point_count
+
+
+def advance_and_gather_plain(rb: RollBuffer, seq_batch, ps_threshold,
+                             filter_size: int, roll_min, now,
+                             tf_world_move: torch.Tensor,
+                             tf_crop_move: torch.Tensor, capacity: int):
+    """Plain PyTorch twin of :func:`advance_and_gather`: the staged batch
+    filtered (:func:`ops.stencil.filter_point_sequence`), then
+    :func:`insert_sequences`, :func:`roll`, :func:`select_timespan` and
+    :func:`gather_selection`; same contract, any device."""
+    sb = seq_batch
+    staged = torch.arange(sb.points.shape[0], dtype=torch.int32,
+                          device=sb.points.device) < sb.num_points
+    seq_mask = filter_point_sequence(sb.points, staged, sb.num_points,
+                                     filter_size, ps_threshold)
+    rb, _ = insert_sequences(
+        rb, sb.points, seq_mask, sb.seq_idx, sb.seq_sec, sb.seq_nsec,
+        sb.seq_count, sb.seq_tf_move, sb.num_points, sb.num_seqs)
+    rb = roll(rb, *roll_min)
+    sel = select_timespan(rb, *roll_min, *now)
+    world, crop, valid, _ = gather_selection(rb, sel, tf_world_move,
+                                             tf_crop_move, capacity)
+    return rb, (world, crop, valid), sel
+
+
+class _Args(ctypes.Structure):
+    """``fusion::lidar::Args`` of ``csrc/lidar_stages.cu``."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "points", "mask", "seq_idx", "seq_sec", "seq_nsec", "seq_start",
+        "seq_count", "seq_tf", "num_points", "num_seqs",
+        "st_points", "st_seq_idx", "st_sec", "st_nsec", "st_count", "st_tf",
+        "st_num_points", "st_num_seqs",
+        "threshold", "min_sec", "min_nsec", "max_sec", "max_nsec",
+        "tf_world_move", "tf_crop_move",
+        "o_points", "o_mask", "o_seq_idx", "o_sec", "o_nsec", "o_start",
+        "o_count", "o_tf", "plan", "tfs", "g_world", "g_crop", "g_valid")] \
+        + [(name, ctypes.c_int) for name in (
+            "P", "S", "SP", "SS", "capacity", "filter_size")]
+
+
+# ``enum Plan`` of csrc/lidar_stages.cu: the words of the plan record that
+# the new state and the selection read, and the record's length (the
+# staged batch's count prefix follows it)
+_NUM_POINTS, _NUM_SEQS, _SEL_START, _PLAN_INTS = 7, 8, 9, 16
+
+
+def _check(name: str, t, dtype, shape, dev) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``dev`` of
+    ``shape`` (a one-element tensor where ``shape`` is ``()``)."""
+    ok = (isinstance(t, torch.Tensor) and t.dtype == dtype
+          and t.device == dev and t.is_contiguous()
+          and (t.numel() == 1 if shape == () else t.shape == shape))
+    if not ok:
+        got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+               if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"advance_and_gather: {name} must be a contiguous "
+                         f"{dtype} tensor of shape {shape} on {dev}, got "
+                         f"{got}")
+
+
+def advance_and_gather(rb: RollBuffer, seq_batch, ps_threshold,
+                       filter_size: int, roll_min, now,
+                       tf_world_move: torch.Tensor,
+                       tf_crop_move: torch.Tensor, capacity: int,
+                       plain: bool = False):
+    """The engine step's lidar stages 1-5: filter the staged batch along
+    its scan order, insert it, expire sequences older than ``roll_min``,
+    select the window ``[roll_min, now]`` and gather it in world and crop
+    coordinates.
+
+    Args:
+        rb: the buffer the step starts from (not modified).
+        seq_batch: the staged batch (``pipeline.engine.SequenceBatch``:
+            ``points [SP, 4]``, ``seq_idx [SP]``, ``seq_sec``,
+            ``seq_nsec``, ``seq_count [SS]``, ``seq_tf_move [SS, 4, 4]``,
+            ``num_points``, ``num_seqs``).
+        ps_threshold: the filter's threshold (0-d float32 tensor).
+        filter_size: the filter's neighbour span.
+        roll_min, now: ``(sec, nsec)`` pairs of 0-d int32 tensors.
+        tf_world_move, tf_crop_move: ``[4, 4]`` frame <- move transforms.
+        capacity: rows gathered, at most the buffer's point capacity.
+        plain: run the twin even on CUDA tensors.
+
+    Returns:
+        (new buffer, (points_world ``[capacity, 4]``, points_crop,
+        valid ``[capacity]`` bool), :class:`Selection`).
+
+    CPU tensors, or ``plain=True``, run :func:`advance_and_gather_plain`;
+    CUDA tensors launch the kernel pair (built on first use), bit-equal to
+    the twin, or raise. Every output is freshly allocated.
+    """
+    dev = rb.points.device
+    if plain or dev.type == "cpu":
+        return advance_and_gather_plain(rb, seq_batch, ps_threshold,
+                                        filter_size, roll_min, now,
+                                        tf_world_move, tf_crop_move,
+                                        capacity)
+    if dev.type != "cuda":
+        raise ValueError(f"advance_and_gather: unsupported device {dev}")
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    p_cap, s_cap = rb.point_capacity, rb.seq_capacity
+    sb = seq_batch
+    sp, ss = sb.points.shape[0], sb.seq_sec.shape[0]
+    if not 1 <= capacity <= p_cap or p_cap > 2 ** 29 or s_cap < 1 \
+            or sp < 1 or ss < 1:
+        raise ValueError(f"advance_and_gather: unsupported capacity "
+                         f"{capacity}, buffer {p_cap} points / {s_cap} "
+                         f"sequences, batch {sp} points / {ss} sequences")
+    threshold = scalar_f32(ps_threshold, dev)
+    for name, t, dtype, shape in (
+            ("rb.points", rb.points, f32, (p_cap, 4)),
+            ("rb.mask", rb.mask, b8, (p_cap,)),
+            ("rb.seq_idx", rb.seq_idx, i32, (p_cap,)),
+            ("rb.seq_sec", rb.seq_sec, i32, (s_cap,)),
+            ("rb.seq_nsec", rb.seq_nsec, i32, (s_cap,)),
+            ("rb.seq_start", rb.seq_start, i32, (s_cap,)),
+            ("rb.seq_count", rb.seq_count, i32, (s_cap,)),
+            ("rb.seq_tf_move", rb.seq_tf_move, f32, (s_cap, 4, 4)),
+            ("rb.num_points", rb.num_points, i32, ()),
+            ("rb.num_seqs", rb.num_seqs, i32, ()),
+            ("seq_batch.points", sb.points, f32, (sp, 4)),
+            ("seq_batch.seq_idx", sb.seq_idx, i32, (sp,)),
+            ("seq_batch.seq_sec", sb.seq_sec, i32, (ss,)),
+            ("seq_batch.seq_nsec", sb.seq_nsec, i32, (ss,)),
+            ("seq_batch.seq_count", sb.seq_count, i32, (ss,)),
+            ("seq_batch.seq_tf_move", sb.seq_tf_move, f32, (ss, 4, 4)),
+            ("seq_batch.num_points", sb.num_points, i32, ()),
+            ("seq_batch.num_seqs", sb.num_seqs, i32, ()),
+            ("ps_threshold", threshold, f32, ()),
+            ("roll_min[0]", roll_min[0], i32, ()),
+            ("roll_min[1]", roll_min[1], i32, ()),
+            ("now[0]", now[0], i32, ()),
+            ("now[1]", now[1], i32, ()),
+            ("tf_world_move", tf_world_move, f32, (4, 4)),
+            ("tf_crop_move", tf_crop_move, f32, (4, 4))):
+        _check(name, t, dtype, shape, dev)
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import _build
+    fn = _build.function("fusion_lidar_stages",
+                         (ctypes.POINTER(_Args), ctypes.c_void_p))
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    # the kernels write every element of every output
+    plan = empty((_PLAN_INTS + ss,), i32)
+    new = RollBuffer(
+        points=empty((p_cap, 4), f32), mask=empty((p_cap,), b8),
+        seq_idx=empty((p_cap,), i32), seq_sec=empty((s_cap,), i32),
+        seq_nsec=empty((s_cap,), i32), seq_start=empty((s_cap,), i32),
+        seq_count=empty((s_cap,), i32),
+        seq_tf_move=empty((s_cap, 4, 4), f32),
+        num_points=plan[_NUM_POINTS], num_seqs=plan[_NUM_SEQS])
+    tfs = empty((2, s_cap, 4, 4), f32)
+    world, crop = empty((capacity, 4), f32), empty((capacity, 4), f32)
+    valid = empty((capacity,), b8)
+    p = torch.Tensor.data_ptr
+    args = _Args(
+        *map(p, (rb.points, rb.mask, rb.seq_idx, rb.seq_sec, rb.seq_nsec,
+                 rb.seq_start, rb.seq_count, rb.seq_tf_move, rb.num_points,
+                 rb.num_seqs, sb.points, sb.seq_idx, sb.seq_sec, sb.seq_nsec,
+                 sb.seq_count, sb.seq_tf_move, sb.num_points, sb.num_seqs,
+                 threshold, roll_min[0], roll_min[1], now[0], now[1],
+                 tf_world_move, tf_crop_move, new.points, new.mask,
+                 new.seq_idx, new.seq_sec, new.seq_nsec, new.seq_start,
+                 new.seq_count, new.seq_tf_move, plan, tfs, world, crop,
+                 valid)),
+        p_cap, s_cap, sp, ss, capacity, filter_size)
+    status = fn(ctypes.byref(args), _build.stream_ptr(rb.points))
+    _build.check(status, "advance_and_gather")
+    global launches
+    launches += 2
+    profiling.count("fusion.lidar.kernel_steps")
+    sel = Selection(*(plan[_SEL_START + k] for k in range(4)))
+    return new, (world, crop, valid), sel
 
 
 def dump(rb: RollBuffer) -> dict:

@@ -10,7 +10,9 @@ harness's spans around the port's entry points, the warm-up frames),
 then runs four windows of ``--seconds`` each with the port's tracer
 (:mod:`utils.profiling`) off, on, on, off and the harness's spans off,
 for the frame rate the tracer costs; a fifth window with both on, for the
-port's spans and counters a frame beside the harness's ``host.*`` spans;
+port's spans and counters a frame beside the harness's ``host.*`` spans
+(and whether ``fusion.lidar.kernel_steps``, the steps whose lidar stages
+ran on their kernel pair, equals ``fusion.frames``);
 and last ``--frames`` frames under ``torch.profiler`` with both on. From
 that capture: device activities a frame and device ms by the innermost
 port span that launched them, and the ten longest idle gaps of the
@@ -194,6 +196,11 @@ def measure(cell, seed: int, seconds: float, frames: int,
         "counters": snap["counters"],
         "harness_ms": {k: v * 1e3 / n for k, v in spans.self_s.items()},
     }
+    # steps whose lidar stages ran on the kernel pair: every frame's
+    res["lidar_kernel_steps"] = snap["counters"].get(
+        "fusion.lidar.kernel_steps", 0)
+    res["lidar_kernel_steps_equal_frames"] = (
+        res["lidar_kernel_steps"] == snap["counters"].get("fusion.frames"))
 
     activities = [ProfilerActivity.CPU]
     if cuda:

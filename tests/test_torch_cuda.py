@@ -527,8 +527,8 @@ def test_link_engine_on_card_equals_cpu(dev):
 def test_traced_link_engine_on_card(dev):
     """The tracer on over the same rig pipelined on the card: every engine
     span, the wait on a staging slot's copy event among them, the link's
-    frame counters adding up to the frames, and the outputs of an
-    untraced run."""
+    frame counters adding up to the frames, every step's lidar stages on
+    the kernel pair, and the outputs of an untraced run."""
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
         FusionEngine)
     from ros_gpu_depthmap_fusion_tpu_torch.utils import profiling
@@ -550,6 +550,7 @@ def test_traced_link_engine_on_card(dev):
         <= set(snap["spans"])
     c = snap["counters"]
     assert c["fusion.frames"] == 7
+    assert c["fusion.lidar.kernel_steps"] == 7
     assert sum(c.get("fusion.link." + k, 0) for k in (
         "iframes", "pframes", "p4frames", "raw_frames")) == 7
     for (a, _), (b, _) in zip(traced, plain):
@@ -1145,3 +1146,169 @@ def test_sharded_engine_on_card_equals_cpu_single(dev, tmp_path, backend,
                 fused, out.fused_points.numpy()[:int(out.fused_count)])
             assert launches == [3, 3, 12]
     assert int(out.fused_count) > 0
+
+
+# The lidar stages' edge cases (state/rollbuffer.py advance_and_gather):
+# name -> (point capacity, sequence capacity, staged points, staged
+# sequence records, filter size, rows gathered, frames); a frame is (its
+# sequences as (points, stamp s), now s), with the window [now - span,
+# now], LIDAR_SPAN s wide
+LIDAR_SPAN = 0.25
+LIDAR_CASES = {
+    # no lidar (the launch-file presets): an empty batch on an empty buffer
+    "empty": (64, 8, 32, 1, 1, 64,
+              [([], 10.0 + 0.1 * f) for f in range(4)]),
+    # stamps behind the buffer's last, clamped forward
+    "late_stamp": (256, 16, 64, 4, 2, 128, [
+        ([(9, 10.0), (12, 10.01)], 10.0),
+        ([(11, 10.1)], 10.1),
+        ([(9, 10.2), (5, 10.21)], 10.2),
+        ([(9, 9.85), (12, 10.3)], 10.3),
+        ([(7, 10.2)], 10.4),
+        ([(6, 10.5), (6, 10.5)], 10.5)]),
+    # a sequence cut by the point capacity drops whole, with the ones after
+    "point_overflow": (40, 16, 48, 4, 1, 40, [
+        ([(12, 10.0), (12, 10.0)], 10.0),
+        ([(10, 10.1), (14, 10.1), (5, 10.1)], 10.1),
+        ([(3, 10.2)], 10.2),
+        ([(20, 10.3), (19, 10.3)], 10.3),
+        ([(8, 10.4)], 10.4)]),
+    # more sequences than free slots
+    "seq_overflow": (512, 6, 64, 4, 1, 512, [
+        ([(5, 10.0 + 0.1 * f)] * 4, 10.0 + 0.1 * f) for f in range(5)]),
+    # everything expires; a batch stamped before the window expires at once
+    "all_expire": (128, 8, 32, 4, 1, 128, [
+        ([(10, 10.0), (8, 10.0)], 10.0),
+        ([(6, 10.1)], 10.1),
+        ([], 15.0),
+        ([(5, 14.0), (4, 14.0)], 15.1),
+        ([(7, 15.2)], 15.2)]),
+    # sequences stamped after now: kept, never selected until now passes
+    "empty_window": (128, 8, 32, 4, 1, 128, [
+        ([(10, 10.5)], 10.0),
+        ([(6, 10.6)], 10.1),
+        ([(4, 10.05)], 10.2),
+        ([], 10.7),
+        ([(3, 10.8)], 10.8)]),
+    # a batch that fills both capacities exactly, then one with no room
+    "full": (60, 5, 60, 5, 3, 60, [
+        ([(12, 10.0)] * 5, 10.0),
+        ([(4, 10.1)], 10.1),
+        ([(3, 10.2)], 10.2),
+        ([(60, 10.3)], 10.3),
+        ([(1, 10.4)], 10.4)]),
+}
+
+
+def _stamp(t):
+    sec = int(np.floor(t))
+    nsec = int(round((t - sec) * 1e9))
+    if nsec >= 10 ** 9:
+        sec, nsec = sec + 1, nsec - 10 ** 9
+    return np.int32(sec), np.int32(nsec)
+
+
+def lidar_case(name, device, seed=0):
+    """Case ``name`` of :data:`LIDAR_CASES` on ``device``: (empty buffer,
+    rows gathered, filter size, frames), a frame the keyword arguments of
+    ``advance_and_gather`` but the buffer: scan arcs with points on their
+    neighbour's view ray (the filter drops them) and one at the origin."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms as tr
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        SequenceBatch)
+    from ros_gpu_depthmap_fusion_tpu_torch.state import rollbuffer as rbm
+    p_cap, s_cap, sp, ss, size, cap, frames = LIDAR_CASES[name]
+    rng = np.random.default_rng(seed)
+
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    out = []
+    for f, (seqs, now) in enumerate(frames):
+        pts = np.zeros((sp, 4), np.float32)
+        idx = np.zeros(sp, np.int32)
+        sec, nsec, cnt = (np.zeros(ss, np.int32) for _ in range(3))
+        tfs = np.tile(np.eye(4, dtype=np.float32), (ss, 1, 1))
+        off = 0
+        for i, (k, stamp) in enumerate(seqs):
+            ang = np.linspace(0.0, 1.5, k) + rng.uniform(0, 6)
+            r = rng.uniform(2, 8) + 0.05 * rng.standard_normal(k)
+            xyz = np.stack([r * np.cos(ang), r * np.sin(ang),
+                            0.3 * rng.standard_normal(k)], -1)
+            xyz[2::7] = xyz[1:-1:7][:len(xyz[2::7])] * 1.05
+            if k > 4:
+                xyz[4] = 0.0
+            pts[off:off + k, :3] = xyz
+            pts[off:off + k, 3] = 1.0
+            idx[off:off + k] = i
+            sec[i], nsec[i] = _stamp(stamp)
+            cnt[i] = k
+            tfs[i] = tr.make_se3(tr.rot_z(rng.uniform(-1, 1)),
+                                 rng.uniform(-2, 2, 3))
+            off += k
+        i32, f32 = torch.int32, torch.float32
+        out.append(dict(
+            seq_batch=SequenceBatch(
+                points=t(pts, f32), seq_idx=t(idx, i32), seq_sec=t(sec, i32),
+                seq_nsec=t(nsec, i32), seq_count=t(cnt, i32),
+                seq_tf_move=t(tfs, f32), num_points=t(off, i32),
+                num_seqs=t(len(seqs), i32)),
+            ps_threshold=t(0.05, f32),
+            roll_min=tuple(t(v, i32) for v in _stamp(now - LIDAR_SPAN)),
+            now=tuple(t(v, i32) for v in _stamp(now)),
+            tf_world_move=t(tr.make_se3(tr.rot_z(0.3 * f),
+                                        (1.0, -2.0, 0.5)), f32),
+            tf_crop_move=t(tr.make_se3(tr.rot_x(0.1), (0.0, 0.2, -0.1)),
+                           f32)))
+    return rbm.make_rollbuffer(p_cap, s_cap, device), cap, size, out
+
+
+@pytest.mark.parametrize("name", list(LIDAR_CASES))
+def test_lidar_stages_kernels_equal_twin(dev, name):
+    """The lidar kernel pair against its plain twin on the card, frame by
+    frame from the kernels' own state: the new buffer, the gathered
+    world and crop rows and validity, and the selection, bit for bit; two
+    launches a step."""
+    from ros_gpu_depthmap_fusion_tpu_torch.state import rollbuffer as rbm
+    rb, cap, size, frames = lidar_case(name, dev)
+    for f, kw in enumerate(frames):
+        n = rbm.launches
+        got = rbm.advance_and_gather(rb, filter_size=size, capacity=cap,
+                                     **kw)
+        assert rbm.launches - n == 2
+        ref = rbm.advance_and_gather(rb, filter_size=size, capacity=cap,
+                                     plain=True, **kw)
+        assert rbm.launches - n == 2
+        for path, a, b in (("rb", got[0], ref[0]), ("gathered", got[1],
+                                                    ref[1]),
+                           ("selection", got[2], ref[2])):
+            for k, (x, y) in enumerate(zip(a, b)):
+                assert x.dtype == y.dtype and x.shape == y.shape, (f, path, k)
+                assert torch.equal(x, y), (name, f, path, k)
+        rb = got[0]
+
+
+def check_lidar_refusals(dev):
+    """On CUDA tensors ``advance_and_gather`` raises, before any launch,
+    for a wrong dtype, a wrong shape, a batch on another device or a
+    capacity above the buffer's."""
+    from ros_gpu_depthmap_fusion_tpu_torch.state import rollbuffer as rbm
+    rb, cap, size, frames = lidar_case("late_stamp", dev)
+    kw = dict(frames[0], filter_size=size, capacity=cap)
+    sb = kw["seq_batch"]
+    n = rbm.launches
+    for bad_rb, bad_kw in (
+            (rb._replace(points=rb.points.double()), {}),
+            (rb._replace(seq_tf_move=rb.seq_tf_move.reshape(-1, 16)), {}),
+            (rb._replace(mask=rb.mask.to(torch.uint8)), {}),
+            (rb, dict(seq_batch=sb._replace(points=sb.points.cpu()))),
+            (rb, dict(seq_batch=sb._replace(seq_idx=sb.seq_idx.long()))),
+            (rb, dict(tf_world_move=kw["tf_world_move"][:3])),
+            (rb, dict(capacity=rb.point_capacity + 1))):
+        with pytest.raises(ValueError, match="advance_and_gather"):
+            rbm.advance_and_gather(bad_rb, **dict(kw, **bad_kw))
+    assert rbm.launches == n
+
+
+def test_lidar_stages_kernels_refuse_bad_inputs(dev):
+    check_lidar_refusals(dev)
