@@ -13,6 +13,18 @@ occupancy that overflowed its capacity without a dense fallback raises
 of its thread from :meth:`AsyncMappingWorker.latest`, ``submit`` and
 ``close`` (JAX's thread dies silently); and labels stay int32 on the
 device and are narrowed to u16 on the host copy.
+
+Traced (:mod:`..utils.profiling`, on whichever thread runs the cycle):
+span ``fusion.mapping`` is one cycle, with ``.segment`` (the device or
+host segmentation), ``.fetch`` (the results', bitmap's or sparse blocks'
+copy to the host), ``.objects`` and ``.track`` inside it; counters
+``fusion.mapping.cycles``, ``.cc_iterations`` and ``.merge_iterations``
+(the device segmentation's two fixpoint loops, each iteration of which
+the host waits for), ``.objects`` (merged objects, the background not
+counted), ``.labels_dropped`` (layers whose labels reached
+``cc_max_labels_per_layer``: the last may hold several components) and
+``.objects_dropped`` (merged objects without statistics of their own,
+beyond ``max_objects``); gauge ``fusion.mapping.tracks`` (live tracks).
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import segment
 from ros_gpu_depthmap_fusion_tpu_torch.mapping.tracking import (
     CCObjectTrack, TrackingStats, track_objects)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import occupancy_bitmap
-from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+from ros_gpu_depthmap_fusion_tpu_torch.utils import native, profiling
 
 
 class MappingResult(NamedTuple):
@@ -49,6 +61,13 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.cpu().numpy()
     return np.asarray(a)
+
+
+def _cycle(frame=None):
+    """One mapping cycle: counter ``fusion.mapping.cycles``, and span
+    ``fusion.mapping`` of host frame ``frame`` to enter."""
+    profiling.count("fusion.mapping.cycles")
+    return profiling.span("fusion.mapping", frame)
 
 
 class MappingPipeline:
@@ -93,8 +112,9 @@ class MappingPipeline:
         # Z * max_labels bounds the id space
         host_cap = max(self.cfg.max_objects,
                        occ.shape[0] * self.cfg.cc_max_labels_per_layer)
-        return native.segment_grid(occ, self.cfg.cc_max_labels_per_layer,
-                                   host_cap)
+        with profiling.span("fusion.mapping.segment"):
+            return native.segment_grid(
+                occ, self.cfg.cc_max_labels_per_layer, host_cap)
 
     def _segment_device(self, occ: torch.Tensor) -> dict:
         """:func:`segment` on ``self.device``; the results come back to the
@@ -104,13 +124,19 @@ class MappingPipeline:
         with torch.cuda.stream(self._stream):
             if caller is not None:
                 self._stream.wait_stream(caller)
-            seg = segment(occ.to(self.device),
-                          max_labels=self.cfg.cc_max_labels_per_layer,
-                          max_objects=self.cfg.max_objects)
+            with profiling.span("fusion.mapping.segment"):
+                seg = segment(occ.to(self.device),
+                              max_labels=self.cfg.cc_max_labels_per_layer,
+                              max_objects=self.cfg.max_objects)
             parts = (seg.labels, seg.num_labels, seg.merged_of_label,
                      seg.num_merged, seg.voxel_count,
                      seg.centroid.view(torch.int32), seg.vmin, seg.vmax)
-            flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+            with profiling.span("fusion.mapping.fetch"):
+                flat = torch.cat([p.reshape(-1)
+                                  for p in parts]).cpu().numpy()
+        profiling.count("fusion.mapping.cc_iterations", seg.iterations[0])
+        profiling.count("fusion.mapping.merge_iterations",
+                        seg.iterations[1])
         out, off = [], 0
         for p in parts:
             out.append(flat[off:off + p.numel()].reshape(p.shape))
@@ -150,8 +176,10 @@ class MappingPipeline:
     def fetch_occupancy(self, occupancy_u8: torch.Tensor) -> np.ndarray:
         """The binarized ``[Z, Y, X]`` occupancy on the host: packed 8 cells
         a byte where the occupancy lives, copied, unpacked."""
-        return self._unpack(_host(occupancy_bitmap(
-            occupancy_u8[:self.grid.num_cells])))
+        bits = occupancy_bitmap(occupancy_u8[:self.grid.num_cells])
+        with profiling.span("fusion.mapping.fetch"):
+            packed = _host(bits)
+        return self._unpack(packed)
 
     def _host_cycle(self, t0: float, t1: float, occ: np.ndarray,
                     dt, with_contours) -> MappingResult:
@@ -169,14 +197,19 @@ class MappingPipeline:
         """Mapping step from the fused step's packed bitmap
         (``FrameOutputs.occupancy_bits``, a tensor on any device or a host
         array): one copy to the host."""
+        with _cycle():
+            return self._packed(occupancy_bits, dt, with_contours)
+
+    def _packed(self, occupancy_bits, dt, with_contours) -> MappingResult:
         t0 = time.perf_counter()
-        packed = _host(occupancy_bits)
+        with profiling.span("fusion.mapping.fetch"):
+            packed = _host(occupancy_bits)
         t1 = time.perf_counter()
         occ = self._unpack(packed)
         if self.backend == "host":
             return self._host_cycle(t0, t1, occ, dt, with_contours)
-        return self.process(torch.from_numpy(occ.reshape(-1)), dt,
-                            with_contours)
+        return self._process(torch.from_numpy(occ.reshape(-1)), dt,
+                             with_contours)
 
     def process_sparse(self, sparse,
                        dt: float | None = None,
@@ -188,17 +221,22 @@ class MappingPipeline:
         when the blocks overflowed their capacity (``true_count >
         capacity``) the dense fallback is processed instead, and without
         one this raises ``ValueError``."""
+        with _cycle():
+            return self._sparse(sparse, dt, with_contours)
+
+    def _sparse(self, sparse, dt, with_contours) -> MappingResult:
         t0 = time.perf_counter()
-        idx, words = _host(sparse[0]), _host(sparse[1])
-        cnt = int(_host(sparse[2]))
-        true_cnt = int(_host(sparse[3]))
+        with profiling.span("fusion.mapping.fetch"):
+            idx, words = _host(sparse[0]), _host(sparse[1])
+            cnt = int(_host(sparse[2]))
+            true_cnt = int(_host(sparse[3]))
         cap = int(idx.shape[0])
         if true_cnt > cap:
             if len(sparse) < 5 or sparse[4] is None:
                 raise ValueError(
                     f"sparse occupancy overflowed its capacity ({true_cnt} "
                     f"> {cap} blocks) and no dense fallback was passed")
-            return self.process_packed(sparse[4], dt, with_contours)
+            return self._packed(sparse[4], dt, with_contours)
         t1 = time.perf_counter()
         n = self.grid.num_cells
         nbytes = -(-n // 8)
@@ -207,8 +245,8 @@ class MappingPipeline:
         occ = self._unpack(buf.view(np.uint8)[:nbytes])
         if self.backend == "host":
             return self._host_cycle(t0, t1, occ, dt, with_contours)
-        return self.process(torch.from_numpy(occ.reshape(-1)), dt,
-                            with_contours)
+        return self._process(torch.from_numpy(occ.reshape(-1)), dt,
+                             with_contours)
 
     def process_host_grid(self, occ_zyx: np.ndarray,
                           dt: float | None = None,
@@ -220,14 +258,21 @@ class MappingPipeline:
         backend would copy the grid back to the device). Raises without
         the native library."""
         native.require()
-        res = self._segment_host(np.ascontiguousarray(occ_zyx, np.uint8))
-        return self._finish(res, dt, with_contours)
+        with _cycle():
+            res = self._segment_host(np.ascontiguousarray(occ_zyx,
+                                                          np.uint8))
+            return self._finish(res, dt, with_contours)
 
     def process(self, occupancy_u8: torch.Tensor,
                 dt: float | None = None,
-                with_contours: bool = True) -> MappingResult:
+                with_contours: bool = True, frame=None) -> MappingResult:
         """One mapping step on a flat ``[num_cells]`` (or longer) occupancy
-        tensor on any device."""
+        tensor on any device; ``frame``: the host frame the tracer files
+        the cycle's spans under."""
+        with _cycle(frame):
+            return self._process(occupancy_u8, dt, with_contours)
+
+    def _process(self, occupancy_u8, dt, with_contours) -> MappingResult:
         if self.backend == "host":
             res = self._segment_host(self.fetch_occupancy(occupancy_u8))
         else:
@@ -239,19 +284,30 @@ class MappingPipeline:
     def _finish(self, res: dict, dt: float | None,
                 with_contours: bool) -> MappingResult:
         dt = self.cfg.tracking_dt if dt is None else dt
-        objects = build_objects(
-            labels=res["labels"], num_labels=res["num_labels"],
-            merged_of_label=res["merged_of_label"],
-            num_merged=int(res["num_merged"]),
-            voxel_count=res["voxel_count"], centroid=res["centroid"],
-            vmin=res["vmin"], vmax=res["vmax"], grid=self.grid,
-            with_contours=with_contours,
-            detail_mask=self._detail_mask(res))
-        stats = track_objects(objects, self.tracks,
-                              self.cfg.object_min_area, dt,
-                              max_tracks=self.cfg.max_tracks)
+        num_merged = int(res["num_merged"])
+        with profiling.span("fusion.mapping.objects"):
+            objects = build_objects(
+                labels=res["labels"], num_labels=res["num_labels"],
+                merged_of_label=res["merged_of_label"],
+                num_merged=num_merged,
+                voxel_count=res["voxel_count"], centroid=res["centroid"],
+                vmin=res["vmin"], vmax=res["vmax"], grid=self.grid,
+                with_contours=with_contours,
+                detail_mask=self._detail_mask(res))
+        with profiling.span("fusion.mapping.track"):
+            stats = track_objects(objects, self.tracks,
+                                  self.cfg.object_min_area, dt,
+                                  max_tracks=self.cfg.max_tracks)
+        if profiling.enabled():
+            profiling.count("fusion.mapping.objects", max(num_merged - 1, 0))
+            profiling.count("fusion.mapping.labels_dropped", int(
+                (np.asarray(res["num_labels"])
+                 >= self.cfg.cc_max_labels_per_layer).sum()))
+            profiling.count("fusion.mapping.objects_dropped",
+                            max(num_merged - len(res["voxel_count"]), 0))
+            profiling.gauge("fusion.mapping.tracks", len(self.tracks))
         return MappingResult(objects=objects, tracks=self.tracks,
-                             stats=stats, num_merged=int(res["num_merged"]))
+                             stats=stats, num_merged=num_merged)
 
 
 class HostCopy(NamedTuple):

@@ -1134,7 +1134,8 @@ class FusionEngine:
                 "use self.mapping.process_sparse on the frame's "
                 "occupancy_sparse_* outputs, or process_packed on "
                 "occupancy_bits")
-        return self.mapping.process(out.occupancy_u8, self.cfg.tracking_dt)
+        return self.mapping.process(out.occupancy_u8, self.cfg.tracking_dt,
+                                    frame=self.frame_id - 1)
 
     def close(self):
         """Stop the pipelined engine's worker thread (after the frame in

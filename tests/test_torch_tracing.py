@@ -6,7 +6,9 @@ and ``fusion.*`` ranges in a ``torch.profiler`` capture. A traced tiny
 pipelined engine gives every engine span, its link counters add up to its
 frames and its packet bytes to the packets' words; the component's sync
 span, drop counters and ``enable_debug_output`` printout; the engine's
-resolved partials capacity against the voxelizer's own."""
+resolved partials capacity against the voxelizer's own; the mapping
+cycle's spans and counters, equal to what the cycle itself returns, and
+nothing of them with the tracer off."""
 
 import json
 import threading
@@ -18,6 +20,8 @@ import torch
 
 from ros_gpu_depthmap_fusion_tpu_torch.core.camera import PinholeIntrinsics
 from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
+from ros_gpu_depthmap_fusion_tpu_torch.mapping import pipeline as mapmod
 from ros_gpu_depthmap_fusion_tpu_torch.ops import voxelize as voxmod
 from ros_gpu_depthmap_fusion_tpu_torch.pipeline.component import (
     FusionComponent)
@@ -30,6 +34,9 @@ ENGINE_SPANS = ("fusion.engine.stage", "fusion.engine.encode",
                 "fusion.step", "fusion.step.unpack", "fusion.step.lidar",
                 "fusion.step.depth", "fusion.step.voxelize",
                 "fusion.step.occupancy")
+MAPPING_SPANS = ("fusion.mapping", "fusion.mapping.segment",
+                 "fusion.mapping.fetch", "fusion.mapping.objects",
+                 "fusion.mapping.track")
 LINK_KINDS = ("fusion.link.iframes", "fusion.link.pframes",
               "fusion.link.p4frames", "fusion.link.raw_frames")
 
@@ -377,3 +384,92 @@ def test_partials_capacity_is_the_voxelizers(monkeypatch, kw):
     eng.process(now)
     assert resolved == ([eng.partials_capacity] if eng.partials_capacity
                         else [])
+
+
+# --- the mapping cycle -------------------------------------------------------
+
+def mapping_frames(n=4, seed=5):
+    """``n`` flat ``[5 * 20 * 24]`` u8 occupancies: a few boxes drifting a
+    cell a frame, plus speckle."""
+    rng = np.random.default_rng(seed)
+    boxes = [(int(rng.integers(0, 12)), int(rng.integers(0, 10)),
+              int(rng.integers(2, 6)), int(rng.integers(2, 6)),
+              int(rng.integers(0, 4))) for _ in range(5)]
+    for f in range(n):
+        occ = np.zeros((5, 20, 24), np.uint8)
+        for x0, y0, w, h, z0 in boxes:
+            occ[z0:z0 + 2, y0:y0 + h, x0 + f:x0 + f + w] = 1
+        occ |= (rng.random(occ.shape) < 0.02).astype(np.uint8)
+        yield torch.from_numpy(occ.reshape(-1))
+
+
+def mapping_pipeline(backend, **kw):
+    cfg = FusionConfig(voxel_min=(0, 0, 0), voxel_max=(2.4, 2.0, 0.5),
+                       voxel_size=(0.1, 0.1, 0.1), max_objects=64,
+                       segmentation_backend=backend, **kw)
+    return mapmod.MappingPipeline(cfg, VoxelGrid.from_config(cfg), "cpu")
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_mapping_spans_and_counters(need_native, backend, monkeypatch):
+    """Each mapping span per cycle, ``process`` filed under its frame; the
+    counters equal the cycles' own results: merged objects, iterations of
+    the device's fixpoint loops, live tracks."""
+    iters = []
+    segment = mapmod.segment
+
+    def spy(*a, **k):
+        seg = segment(*a, **k)
+        iters.append(seg.iterations)
+        return seg
+    monkeypatch.setattr(mapmod, "segment", spy)
+    pipe = mapping_pipeline(backend)
+    profiling.enable()
+    results = [pipe.process(occ, frame=f)
+               for f, occ in enumerate(mapping_frames())]
+    snap = profiling.snapshot()
+    for name in MAPPING_SPANS:
+        assert snap["spans"][name][1] == 4, name
+    assert set(profiling.frame_spans(2)) == set(MAPPING_SPANS)
+    c = snap["counters"]
+    assert c["fusion.mapping.cycles"] == 4
+    assert c["fusion.mapping.objects"] == sum(r.num_merged - 1
+                                              for r in results) > 8
+    assert c["fusion.mapping.tracks"] == len(results[-1].tracks) > 0
+    assert c["fusion.mapping.labels_dropped"] == 0
+    assert c["fusion.mapping.objects_dropped"] == 0
+    if backend == "device":
+        assert c["fusion.mapping.cc_iterations"] == sum(
+            i[0] for i in iters) >= 4 * 2
+        assert c["fusion.mapping.merge_iterations"] == sum(
+            i[1] for i in iters)
+    else:
+        assert not iters and "fusion.mapping.cc_iterations" not in c
+    assert "fusion.mapping.tracks" in profiling.report(2)
+
+
+def test_mapping_entry_points_count_one_cycle_each(need_native):
+    """``process_packed`` and ``process_sparse`` through the device
+    backend, which segments the unpacked grid: one cycle, one span each,
+    and the copies to the host as ``fetch``."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import (
+        occupancy_bitmap, occupancy_bitmap_sparse)
+    pipe = mapping_pipeline("device")
+    occ = next(mapping_frames())
+    profiling.enable()
+    pipe.process_packed(occupancy_bitmap(occ))
+    pipe.process_sparse(occupancy_bitmap_sparse(occ, 64))
+    snap = profiling.snapshot()
+    assert snap["counters"]["fusion.mapping.cycles"] == 2
+    assert snap["spans"]["fusion.mapping"][1] == 2
+    assert snap["spans"]["fusion.mapping.segment"][1] == 2
+    # the packed bitmap; the sparse blocks, then the segmentation's results
+    assert snap["spans"]["fusion.mapping.fetch"][1] == 4
+
+
+def test_mapping_records_nothing_with_tracer_off(need_native):
+    for backend in ("device", "host"):
+        pipe = mapping_pipeline(backend)
+        for occ in mapping_frames(2):
+            pipe.process(occ, frame=0)
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
