@@ -65,9 +65,11 @@ each:
    mapping_detail_min_area=-1.0), eng.grid, "cuda")``, 12 frames to fill
    the decaying history; a warm ``process_sparse`` cycle on the last
    frame, equal in every field to ``process_packed`` of a fresh pipeline;
-   the device segmentation on that frame's 21x400x400 grid on the card,
-   exact against the native host segmentation (centroid within 1e-4) and
-   against the CPU run (every field), timed beside native; then
+   the device segmentation (the CUDA chain of ``csrc/segment.cu``) on
+   that frame's 21x400x400 grid on the card, exact against the native host
+   segmentation (centroid within 1e-4) and against its plain twin on the
+   card and on the CPU (every field but the twin's fixpoint iterations),
+   timed beside native; then
    ``AsyncMappingWorker(packed=True)`` over 60 frames paced at 30 Hz, a
    4-frame lag drain, 3 of every 5 frames mapped, the sparse tuple
    prefetched at enqueue: the worker must cycle, raise nothing and leave
@@ -136,7 +138,10 @@ Then one JSON line with the kernels' names, sources, launch counts (and
 launches per frame, also by path), errors, device, call, twin, bound and
 library times (also by timed call site), the lidar pair's (``[lidar
 kernels]``: device, call, twin and bound ms and launches a frame by path,
-on the recorded link frame's inputs), the ``nvidia-smi`` line, and,
+on the recorded link frame's inputs), the segmentation chain's
+(``[segment kernels]``: device, call, twin and bound ms, launches and
+device activities a call, on the mapping phase's 21x400x400 grid), the
+``nvidia-smi`` line, and,
 last, ``{"ok": true, "device": ...}``. Any failure is an uncaught exception and a non-zero exit; without a
 CUDA device it exits non-zero before printing any result.
 
@@ -1110,13 +1115,14 @@ def small_rigs_publish(torch, engmod, FusionConfig, transforms,
 
 def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
     """``bench.py:443-537`` on the port: warm cycle, device segmentation
-    on the card against native and the CPU, then the paced mapping-on
-    loop. Prints the ``[mapping]`` line."""
+    on the card against native, its twin on the card and the CPU, then the
+    paced mapping-on loop. Prints the ``[mapping]`` line; returns the
+    segmented grid (a CPU tensor) for the chain's timing."""
     from collections import deque
     from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (
         AsyncMappingWorker, MappingPipeline, prefetch)
     from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import (
-        segment)
+        segment, segment_plain)
     eng = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=1)
     eng.enable_mapping = True
     mcfg = cfg.replace(mapping_detail_min_area=-1.0)
@@ -1165,10 +1171,17 @@ def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
     t0 = time.perf_counter()
     cpu = segment(occ_t, lab, objs)
     cpu_s = time.perf_counter() - t0
-    for k in cpu._fields:
-        a, b = getattr(seg, k), getattr(cpu, k)
-        if not (a == b if k == "iterations" else torch.equal(a.cpu(), b)):
+    twin = segment_plain(occ_t.cuda(), lab, objs)
+    if seg.iterations != (0, 0) or min(cpu.iterations) < 1:
+        raise AssertionError(f"device segment: iterations {seg.iterations} "
+                             f"(chain), {cpu.iterations} (twin)")
+    for k in cpu._fields[:-1]:          # all but iterations
+        a = getattr(seg, k).cpu()
+        if not torch.equal(a, getattr(cpu, k)):
             raise AssertionError(f"device segment: {k} card != cpu")
+        if not torch.equal(a, getattr(twin, k).cpu()):
+            raise AssertionError(f"device segment: {k} chain != its twin "
+                                 "on the card")
     seg_ms = cuda_ms(torch, lambda: segment(occ_t.cuda(), lab, objs),
                      reps=5, warm=1)
     nat_ms = []
@@ -1235,11 +1248,56 @@ def mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu):
           f"merged ids, sparse blocks true {sp_true} of {sp_cap} "
           f"({'dense fallback engaged' if sp_true > sp_cap else 'no fallback'})"
           f"; sparse == packed | device segment {zyx} on the card "
-          f"{seg_ms:.2f} ms (median of 5, {seg.iterations[0]} label + "
-          f"{seg.iterations[1]} merge iterations) vs native "
+          f"{seg_ms:.2f} ms (median of 5, the grid's copy to the card "
+          f"included; the twin: {cpu.iterations[0]} label + "
+          f"{cpu.iterations[1]} merge iterations) vs native "
           f"{float(np.median(nat_ms)):.2f} ms (host clock), CPU torch "
           f"{cpu_s:.1f} s; card == native (centroid within {cen_err:.1e}) "
-          f"== cpu | launches {launches} | {gpu}", flush=True)
+          f"== twin on the card == cpu | launches {launches} | {gpu}",
+          flush=True)
+    return occ_t
+
+
+def segment_timing(torch, grid, cfg, gpu):
+    """The segmentation chain (``mapping/segmentation.py segment``, eight
+    kernels of ``csrc/segment.cu``) and its plain twin on ``grid``, already
+    on the card: device ms and device activities a call, call ms, the
+    chain's launches a call by its counter, and the bound (bytes: the
+    occupancy read once, labels, merged ids and the small outputs written
+    once). Prints the ``[segment kernels]`` line; returns its numbers."""
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping import segmentation
+    occ = grid.cuda()
+    lab, objs = cfg.cc_max_labels_per_layer, cfg.max_objects
+
+    def chain():
+        return segmentation.segment(occ, lab, objs)
+
+    def twin():
+        return segmentation.segment_plain(occ, lab, objs)
+    before = segmentation.launches
+    chain()
+    torch.cuda.synchronize()
+    n_launch = segmentation.launches - before
+    ms, acts = device_profile(torch, chain)
+    call = cuda_ms(torch, chain)
+    t_ms, t_acts = device_profile(torch, twin, reps=5, warm=1)
+    t_call = cuda_ms(torch, twin, reps=5, warm=1)
+    z = occ.shape[0]
+    nbytes = occ.numel() * (1 + 4 + 4) + 4 * (z + z * lab + 1 + 10 * objs)
+    bound, by = roofline(nbytes, 0)
+    print(f"[segment kernels] segment on the mapping grid "
+          f"{tuple(occ.shape)}, {lab} labels a layer, {objs} objects: "
+          f"device ms {ms:.4f} ({acts:g} device activities, {n_launch} "
+          f"launches a call) | call_ms {call:.4f} | bound_ms {bound:.4f} "
+          f"({by}, {bound / ms:.4f} of the bound reached) | twin: device ms "
+          f"{t_ms:.4f} ({t_acts:g} device activities), call_ms "
+          f"{t_call:.4f} | {gpu}", flush=True)
+    return dict(name="segment", route="cuda",
+                source="ros_gpu_depthmap_fusion_tpu_torch/csrc/segment.cu",
+                replaces=None, ms=ms, device_activities=acts,
+                launches=n_launch, call_ms=call, plain_ms=t_ms,
+                plain_device_activities=t_acts, plain_call_ms=t_call,
+                bound_ms=bound, bound_by=by)
 
 
 class timed_calls:
@@ -2175,7 +2233,8 @@ def main():
                        PinholeIntrinsics, gpu)
 
     # -- 6. mapping on --
-    mapping_phase(torch, engmod, cfg, scene, intr, kmods, native, gpu)
+    seg_grid = mapping_phase(torch, engmod, cfg, scene, intr, kmods, native,
+                             gpu)
 
     # -- 7. the SLAM path: the TUM runner on the hard synthetic sequence --
     tum_launches, window = tum_phase(torch, engmod, kmods, gpu)
@@ -2260,6 +2319,10 @@ def main():
           f"{t_ms:.4f} ({t_acts:g} device activities), call_ms {t_call:.4f}"
           f" | launches a frame by path {l_paths} | {gpu}", flush=True)
     del lidar_rec, rb, kw
+
+    # the segmentation chain on the mapping phase's grid, beside its twin
+    seg_res = segment_timing(torch, seg_grid, cfg, gpu)
+    del seg_grid
 
     # the publish step of each mode, whole, from its tapped state: device
     # ms and device activities a step, and CUDA events around one step
@@ -2381,7 +2444,8 @@ def main():
                 raise AssertionError(f"{path}: {name} was not launched")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched: {kernels}")
-    print(json.dumps({"kernels": kernels, "lidar_stages": lidar_res}))
+    print(json.dumps({"kernels": kernels, "lidar_stages": lidar_res,
+                      "segment": seg_res}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,10 +18,13 @@ Traced (:mod:`..utils.profiling`, on whichever thread runs the cycle):
 span ``fusion.mapping`` is one cycle, with ``.segment`` (the device or
 host segmentation), ``.fetch`` (the results', bitmap's or sparse blocks'
 copy to the host), ``.objects`` and ``.track`` inside it; counters
-``fusion.mapping.cycles``, ``.cc_iterations`` and ``.merge_iterations``
-(the device segmentation's two fixpoint loops, each iteration of which
-the host waits for), ``.objects`` (merged objects, the background not
-counted), ``.labels_dropped`` (layers whose labels reached
+``fusion.mapping.cycles``, ``.segment_kernel_cycles`` (device
+segmentations that ran the CUDA chain, counted by
+:func:`.segmentation.segment`), ``.cc_iterations`` and
+``.merge_iterations`` (the plain twin's two fixpoint loops, each iteration
+of which the host waits for: only a CPU device fills them, the CUDA chain
+adds 0), ``.objects`` (merged objects, the background not counted),
+``.labels_dropped`` (layers whose labels reached
 ``cc_max_labels_per_layer``: the last may hold several components) and
 ``.objects_dropped`` (merged objects without statistics of their own,
 beyond ``max_objects``); gauge ``fusion.mapping.tracks`` (live tracks).

@@ -1,6 +1,10 @@
 """2.5-D object segmentation on a torch device (the JAX package's
-``mapping/segmentation.py``, an XLA program with no Pallas kernel, in
-plain PyTorch).
+``mapping/segmentation.py``, an XLA program with no Pallas kernel).
+
+:func:`segment` runs the full pass: on a CUDA tensor a chain of eight
+hand-written kernels (``csrc/segment.cu``) on the current stream, with no
+host synchronization; on a CPU tensor :func:`segment_plain`, the JAX
+program in plain PyTorch, built from:
 
 - :func:`label_layers` — per-layer 8-connected components by iterated
   min-label propagation + pointer jumping, labels densely renumbered in
@@ -14,12 +18,11 @@ plain PyTorch).
 - :func:`merge_labels` — cross-layer merge iterated to fixpoint (label 0
   merges only with label 0; merged ids dense in ascending order of their
   smallest global label, background = 0).
-- :func:`segment` — the full pass with per-object voxel count, centroid
-  and bounding box.
 
 Every step is integer and exact, so any device gives the JAX program's
-labels, merge table and boxes. The fixpoint loops test for change on the
-host (one synchronization per iteration). The JAX program's ``mode="drop"``
+labels, merge table and boxes, and the kernels give the twin's bit for
+bit. The twin's fixpoint loops test for change on the host (one
+synchronization per iteration). The JAX program's ``mode="drop"``
 scatters target one extra slot that is sliced off. Centroid sums
 accumulate in int64 (exact in any order, where CUDA's float atomics are
 not), then ``centroid = float32(sum) / float32(count)``: bit-equal to the
@@ -29,13 +32,35 @@ and closer to the native float64 centroid above.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 
+from ros_gpu_depthmap_fusion_tpu_torch.utils import profiling
+
 _NEIGHBORS8 = [(-1, -1), (-1, 0), (-1, 1), (0, -1),
                (0, 1), (1, -1), (1, 0), (1, 1)]
 _I32 = torch.int32
+
+#: launches of the CUDA kernels by :func:`segment` in this process
+launches = 0
+#: kernels the CUDA chain launches a call
+CHAIN_LAUNCHES = 8
+# csrc/segment.cu's dynamic shared memory: the merge kernel holds the
+# Z x max_labels table (int32), the stats kernel an object slot of count,
+# three int64 sums, three minimums and three maximums; beside it a kernel
+# declares at most _STATIC_BYTES statically
+_SLOT_BYTES = 4 + 3 * 8 + 6 * 4
+_STATIC_BYTES = 1024
+
+
+def chain_limits(shared_optin: int) -> Tuple[int, int]:
+    """The largest ``Z * max_labels`` and ``max_objects`` the CUDA chain
+    takes on a device whose blocks may opt in to ``shared_optin`` bytes of
+    shared memory (232,448 on the H100: 57,856 and 4,450)."""
+    room = shared_optin - _STATIC_BYTES
+    return room // 4, room // _SLOT_BYTES
 
 
 def _shift_along(a: torch.Tensor, s: int, dim: int, fill) -> torch.Tensor:
@@ -234,10 +259,11 @@ class SegmentationResult(NamedTuple):
     iterations: Tuple[int, int] = (0, 0)
 
 
-def segment(occ_layers: torch.Tensor, max_labels: int,
+def segment_plain(occ_layers: torch.Tensor, max_labels: int,
             max_objects: int) -> SegmentationResult:
     """Full segmentation of a ``[Z, Y, X]`` occupancy stack (bool or
-    integer; nonzero = occupied) on its device."""
+    integer; nonzero = occupied) in plain PyTorch on its device: the twin
+    of :func:`segment`'s CUDA chain."""
     occ = occ_layers > 0
     z, y, x = occ.shape
     dev = occ.device
@@ -276,3 +302,106 @@ def segment(occ_layers: torch.Tensor, max_labels: int,
         num_merged=mr.num_merged, voxel_count=count, centroid=centroid,
         vmin=torch.where(seen, vmin, 0), vmax=torch.where(seen, vmax, -1),
         iterations=(cc_iters, merge_iters))
+
+
+class _Args(ctypes.Structure):
+    """``fusion::seg::Args`` of csrc/segment.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "occ", "labels", "num_labels", "merged_of_label", "num_merged",
+        "merged_map", "voxel_count", "centroid", "vmin", "vmax", "parent",
+        "rows", "conn", "acc_sum", "acc_int")] + [
+        (name, ctypes.c_int) for name in ("Z", "Y", "X", "L", "M")]
+
+
+def check_chain_input(occ_layers, max_labels: int, max_objects: int,
+                      shared_optin: int) -> None:
+    """Raise ``ValueError`` naming what the CUDA chain does not take, on a
+    device whose blocks may opt in to ``shared_optin`` bytes of shared
+    memory: it takes a contiguous bool or uint8 ``[Z, Y, X]`` tensor with
+    Z <= 65535 and Y <= 65535 * 32 (the tile grid), X <= 2^27 (a warp sums
+    32 coordinates in 32 bits) and fewer than 2^30 voxels (32-bit
+    indices), every extent at least 1; ``max_labels`` and ``max_objects``
+    at least 1 and within :func:`chain_limits`. csrc/segment.cu checks
+    none of it."""
+    t = occ_layers
+    if not isinstance(t, torch.Tensor) or t.ndim != 3:
+        raise ValueError(f"segment: the occupancy must be a [Z, Y, X] "
+                         f"tensor, got {getattr(t, 'shape', type(t))}")
+    if t.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"segment: the CUDA chain takes a bool or uint8 "
+                         f"occupancy, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError("segment: the CUDA chain takes a contiguous "
+                         "occupancy")
+    z, y, x = t.shape
+    if (min(z, y, x) < 1 or z > 65535 or y > 65535 * 32 or x > 2 ** 27
+            or z * y * x >= 2 ** 30):
+        raise ValueError(f"segment: the CUDA chain takes 1 <= Z <= 65535, "
+                         f"1 <= Y <= {65535 * 32}, 1 <= X <= 2^27 and fewer "
+                         f"than 2^30 voxels, got {tuple(t.shape)}")
+    if max_labels < 1 or max_objects < 1:
+        raise ValueError(f"segment: max_labels {max_labels} and max_objects "
+                         f"{max_objects} must be at least 1")
+    max_table, max_slots = chain_limits(shared_optin)
+    if z * max_labels > max_table:
+        raise ValueError(f"segment: the merge table Z x max_labels = {z} x "
+                         f"{max_labels} exceeds the {max_table} labels one "
+                         f"block's shared memory holds")
+    if max_objects > max_slots:
+        raise ValueError(f"segment: max_objects {max_objects} exceeds the "
+                         f"{max_slots} slots one block's shared memory "
+                         f"holds")
+
+
+def segment(occ_layers: torch.Tensor, max_labels: int,
+            max_objects: int) -> SegmentationResult:
+    """Full segmentation of a ``[Z, Y, X]`` occupancy stack (nonzero =
+    occupied) on its device.
+
+    A CPU tensor (bool or integer) runs :func:`segment_plain`. A CUDA
+    tensor (bool or uint8, contiguous: :func:`check_chain_input`) launches
+    the kernel chain of csrc/segment.cu on the current stream, built on
+    first use, or raises ``ValueError``; it never waits for the device.
+    Every field equals the twin's bit for bit but ``iterations``, which
+    the chain reports as ``(0, 0)``: it runs no fixpoint on the host.
+    Components beyond ``max_labels - 1`` in a layer fold into the last
+    label, objects beyond ``max_objects - 1`` into the last slot."""
+    dev = occ_layers.device
+    if dev.type == "cpu":
+        return segment_plain(occ_layers, max_labels, max_objects)
+    if dev.type != "cuda":
+        raise ValueError(f"segment: unsupported device {dev}")
+    check_chain_input(occ_layers, max_labels, max_objects,
+                      torch.cuda.get_device_properties(dev)
+                      .shared_memory_per_block_optin)
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import _build
+    fn = _build.function("fusion_segment",
+                         (ctypes.POINTER(_Args), ctypes.c_void_p))
+    z, y, x = occ_layers.shape
+    l, m = max_labels, max_objects
+
+    def empty(shape, dtype=_I32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    # the kernels write every element of every output and initialize the
+    # scratch they read
+    labels, merged_map = empty((z, y, x)), empty((z, y, x))
+    num_labels, mol, num_merged = empty((z,)), empty((z, l)), empty(())
+    count, centroid = empty((m,)), empty((m, 3), torch.float32)
+    vmin, vmax = empty((m, 3)), empty((m, 3))
+    parent, rows = empty((z, y * x)), empty((z, y))
+    conn = empty((max(z - 1, 1) * l * ((l + 31) // 32),))
+    acc_sum, acc_int = empty((m, 3), torch.int64), empty((m, 7))
+    p = torch.Tensor.data_ptr
+    args = _Args(*map(p, (occ_layers, labels, num_labels, mol, num_merged,
+                          merged_map, count, centroid, vmin, vmax, parent,
+                          rows, conn, acc_sum, acc_int)), z, y, x, l, m)
+    status = fn(ctypes.byref(args), _build.stream_ptr(occ_layers))
+    _build.check(status, "segment")
+    global launches
+    launches += CHAIN_LAUNCHES
+    profiling.count("fusion.mapping.segment_kernel_cycles")
+    return SegmentationResult(
+        labels=labels, num_labels=num_labels, merged_of_label=mol,
+        merged_map=merged_map, num_merged=num_merged, voxel_count=count,
+        centroid=centroid, vmin=vmin, vmax=vmax, iterations=(0, 0))

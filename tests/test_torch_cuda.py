@@ -572,8 +572,10 @@ def _bench_like_grid(rng, z, y, x):
 
 @pytest.mark.parametrize("shape", [(7, 40, 48), (21, 400, 400)])
 def test_segment_on_card_equals_cpu(dev, shape):
-    """The device segmentation on the card equals the CPU run in every
-    field, the centroid included (int64 sums: order-free)."""
+    """The device segmentation on the card (the CUDA chain) equals the CPU
+    run (the plain twin) in every field, the centroid included (int64
+    sums: order-free); the chain runs no fixpoint on the host and reports
+    ``iterations`` (0, 0)."""
     from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import (
         segment)
     occ = torch.from_numpy(_bench_like_grid(np.random.default_rng(3),
@@ -582,10 +584,157 @@ def test_segment_on_card_equals_cpu(dev, shape):
     ref = segment(occ, 256, 64)
     for f in ref._fields:
         if f == "iterations":
-            assert got.iterations == ref.iterations
+            assert got.iterations == (0, 0) and min(ref.iterations) >= 1
         else:
             assert torch.equal(getattr(got, f).cpu(), getattr(ref, f)), f
     assert int(ref.num_merged) > 2
+
+
+def _spiral(y, x):
+    """A one-pixel square spiral, each ring one pixel inside the last: one
+    component whose smallest index needs many propagation steps to reach
+    the far end."""
+    g = np.zeros((y, x), bool)
+    r = c = 0
+    dr, dc = 0, 1
+    g[0, 0] = True
+
+    def ok(a, b):
+        return 0 <= a < y and 0 <= b < x and not g[a, b]
+    turns = 0
+    while turns < 2:
+        nr, nc = r + dr, c + dc
+        fr, fc = nr + dr, nc + dc
+        if ok(nr, nc) and not (0 <= fr < y and 0 <= fc < x and g[fr, fc]):
+            r, c, turns = nr, nc, 0
+            g[r, c] = True
+        else:
+            dr, dc, turns = dc, -dr, turns + 1
+    return g
+
+
+def _segment_grid(name):
+    """(occupancy [Z, Y, X] bool, max_labels, max_objects) of a named
+    edge case of the segmentation chain."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "bench":
+        return _bench_like_grid(np.random.default_rng(3), 21, 400, 400), \
+            256, 64
+    if name == "spiral":            # and its complement, and a snake
+        s = _spiral(400, 400)
+        snake = np.zeros((400, 400), bool)
+        snake[::4] = True
+        for k in (1, 2, 3):
+            snake[k::8, -1] = snake[k + 4::8, 0] = True
+        return np.stack([s, ~s, snake, s]), 256, 64
+    if name == "full":              # a fully occupied layer between noise
+        occ = rng.random((3, 123, 77)) < 0.3
+        occ[1] = True
+        return occ, 256, 64
+    if name == "empty":
+        return np.zeros((4, 64, 96), bool), 256, 64
+    if name == "labels_folded":     # 40,000 components in layer 1
+        occ = rng.random((3, 400, 400)) < 0.01
+        occ[1] = False
+        occ[1, ::2, ::2] = True
+        return occ, 256, 64
+    if name == "objects_folded":    # ~900 two-layer pillars, 64 slots
+        occ = np.zeros((5, 120, 130), bool)
+        occ[1:3, ::4, ::4] = True
+        occ[4] = rng.random((120, 130)) < 0.05
+        return occ, 256, 64
+    if name == "ragged":            # tiles cut at every edge
+        return rng.random((5, 37, 53)) < 0.45, 16, 8
+    if name == "wide_row":          # coordinates up to 2^27 - 1, the limit
+        occ = np.zeros((2, 1, 2 ** 27), bool)
+        occ[0] = True
+        occ[1, ::3] = True
+        return occ, 256, 64
+    if name == "table_at_limit":    # Z * max_labels at the chain's limit
+        table = _segment_chain_limits()[0]
+        assert table % 512 == 0
+        return rng.random((table // 512, 24, 40)) < 0.3, 512, 64
+    raise KeyError(name)
+
+
+def _segment_chain_limits():
+    """The largest merge table and object slots the CUDA chain takes on
+    this card."""
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import (
+        chain_limits)
+    return chain_limits(
+        torch.cuda.get_device_properties(0).shared_memory_per_block_optin)
+
+
+SEGMENT_GRIDS = ("bench", "spiral", "full", "empty", "labels_folded",
+                 "objects_folded", "ragged", "wide_row", "table_at_limit")
+
+
+@pytest.mark.parametrize("name", SEGMENT_GRIDS)
+def test_segment_chain_equals_twin(dev, name):
+    """The CUDA chain against its plain twin on the card, every field but
+    ``iterations`` bit for bit, on the cell's grid and the edge cases:
+    many propagation steps, a full layer, an empty grid, labels and
+    objects beyond their capacities (folded into the last id and slot),
+    ragged tiles, a row as wide as the chain takes (every warp of its
+    full layer sums 32 coordinates near 2^27), and the merge table at the
+    shared-memory limit. Eight launches a call, one
+    ``segment_kernel_cycles`` with the tracer on."""
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping import segmentation
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import profiling
+    occ, lab, objs = _segment_grid(name)
+    occ = torch.from_numpy(occ).to(dev)
+    before = segmentation.launches
+    profiling.reset()
+    profiling.enable()
+    try:
+        got = segmentation.segment(occ, lab, objs)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert segmentation.launches - before == segmentation.CHAIN_LAUNCHES
+    assert counters == {"fusion.mapping.segment_kernel_cycles": 1}
+    ref = segmentation.segment_plain(occ, lab, objs)
+    assert got.iterations == (0, 0)
+    for f in ref._fields[:-1]:
+        a, b = getattr(got, f), getattr(ref, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    nl, nm = got.num_labels.cpu(), int(got.num_merged)
+    if name == "labels_folded":
+        assert int(nl[1]) == lab and int(got.labels[1].max()) == lab - 1
+    if name == "objects_folded":
+        assert nm > objs and int(got.voxel_count[-1]) > 2
+    if name == "empty":
+        assert nm == 1 and int(got.voxel_count.sum()) == 0
+    if name == "spiral":
+        assert int(nl[0]) == 2 and int(ref.iterations[0]) > 5
+    if name == "wide_row":
+        assert nm == 3 and int(got.vmax[1, 0]) == 2 ** 27 - 1
+
+
+def test_segment_chain_refuses_what_it_does_not_take(dev):
+    """On the card ``segment`` launches the chain or raises ``ValueError``:
+    a merge table one layer past the shared-memory limit, too many object
+    slots, a float or non-contiguous occupancy. It never runs the twin."""
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping import segmentation
+    table, slots = _segment_chain_limits()
+    lim = table // 512
+    cases = [
+        (torch.zeros((lim + 1, 8, 8), dtype=torch.bool, device=dev), 512, 64,
+         "merge table"),
+        (torch.zeros((2, 8, 8), dtype=torch.bool, device=dev), 256,
+         slots + 1, "max_objects"),
+        (torch.zeros((2, 8, 8), dtype=torch.float32, device=dev), 256, 64,
+         "bool or uint8"),
+        (torch.zeros((2, 8, 8), dtype=torch.uint8, device=dev)
+         .transpose(1, 2), 256, 64, "contiguous")]
+    before = segmentation.launches
+    for occ, lab, objs, what in cases:
+        with pytest.raises(ValueError, match=what):
+            segmentation.segment(occ, lab, objs)
+    assert segmentation.launches == before
 
 
 def _mapping_rig(emit_u8):

@@ -123,10 +123,23 @@ def test_segment_matches_jax(name):
     """Every field of ``segment`` bit-equal to the jitted JAX program,
     and the port's ``label_layers`` / ``layer_connections`` /
     ``merge_labels`` equal to the JAX program's labels, connections and
-    merge table on the same grid."""
+    merge table on the same grid. On the CPU ``segment`` runs its plain
+    twin: the fixpoint loops' iterations counted, no CUDA launch and no
+    ``segment_kernel_cycles`` with the tracer on."""
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import profiling
     occ, l, m = grid_case(name)
     j = _jax_segment(l, m)(occ.astype(np.uint8))
-    t = tseg.segment(torch.from_numpy(occ.astype(np.uint8)), l, m)
+    before = tseg.launches
+    profiling.reset()
+    profiling.enable()
+    try:
+        t = tseg.segment(torch.from_numpy(occ.astype(np.uint8)), l, m)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert tseg.launches == before and counters == {}
+    assert min(t.iterations) >= 1
     _assert_sums_below_2_24(occ, np.asarray(j.merged_map), m)
     for f in jseg.SegmentationResult._fields:
         a, b = np.asarray(getattr(j, f)), getattr(t, f).numpy()
@@ -158,6 +171,56 @@ def test_label_layers_snake_matches_jax():
     assert tuple(tseg.layer_connections(tl, 64).shape) == (0, 64, 64)
     assert int(tseg.segment(torch.from_numpy(occ), 64, 8).num_merged) == \
         int(jn[0])
+
+
+def test_segment_chain_input_checks():
+    """What the CUDA chain takes (``check_chain_input``, which ``segment``
+    applies to a CUDA tensor before any launch, with its device's shared
+    memory; here the H100's): a contiguous bool or uint8 ``[Z, Y, X]``
+    stack within the kernels' 32-bit indices and grid, and a merge table
+    and object slots that fit one block's shared memory; anything else
+    raises ``ValueError`` naming it. ``segment`` refuses a device that is
+    neither the CPU nor CUDA."""
+    optin = 232448
+    table, slots = tseg.chain_limits(optin)
+    assert (table, slots) == (57856, 4450)
+
+    def check(occ, l, m):
+        tseg.check_chain_input(occ, l, m, optin)
+
+    def meta(*shape):       # no memory: the checks read only the shape
+        return torch.empty(shape, dtype=torch.bool, device="meta")
+    lim = table // 256
+    for dtype in (torch.bool, torch.uint8):
+        check(torch.zeros((lim, 2, 3), dtype=dtype), 256, slots)
+    check(meta(1, 65535 * 32, 1), 256, 64)
+    check(meta(1, 1, 2 ** 27), 256, 64)
+    check(meta(1, 2 ** 15, 2 ** 15 - 1), 256, 64)
+    extents = "1 <= Z <= 65535"
+    bad = [
+        (torch.zeros((2, 4, 4), dtype=torch.int32), 256, 64, "bool or uint8"),
+        (torch.zeros((2, 4, 4), dtype=torch.float32), 256, 64,
+         "bool or uint8"),
+        (torch.zeros((2, 4, 6), dtype=torch.uint8)[:, :, ::2], 256, 64,
+         "contiguous"),
+        (torch.zeros((2, 4, 4), dtype=torch.bool).transpose(0, 2), 256, 64,
+         "contiguous"),
+        (torch.zeros((4, 4), dtype=torch.bool), 256, 64, r"\[Z, Y, X\]"),
+        (torch.zeros((2, 0, 4), dtype=torch.bool), 256, 64, extents),
+        (meta(65536, 1, 1), 1, 64, extents),
+        (meta(1, 65535 * 32 + 1, 1), 256, 64, extents),
+        (meta(1, 1, 2 ** 27 + 1), 256, 64, extents),
+        (meta(1, 2 ** 15, 2 ** 15), 256, 64, extents),
+        (torch.zeros((lim + 1, 2, 3), dtype=torch.bool), 256, 64,
+         "merge table"),
+        (torch.zeros((2, 2, 3), dtype=torch.bool), 256, slots + 1,
+         "max_objects"),
+        (torch.zeros((2, 2, 3), dtype=torch.bool), 0, 64, "at least 1")]
+    for occ, l, m, what in bad:
+        with pytest.raises(ValueError, match=what):
+            check(occ, l, m)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        tseg.segment(meta(2, 4, 4), 256, 64)
 
 
 @pytest.mark.parametrize("name", ["boxes0", "boxes1", "boxes2", "clamped"])

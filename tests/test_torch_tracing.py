@@ -403,11 +403,11 @@ def mapping_frames(n=4, seed=5):
         yield torch.from_numpy(occ.reshape(-1))
 
 
-def mapping_pipeline(backend, **kw):
+def mapping_pipeline(backend, device="cpu", **kw):
     cfg = FusionConfig(voxel_min=(0, 0, 0), voxel_max=(2.4, 2.0, 0.5),
                        voxel_size=(0.1, 0.1, 0.1), max_objects=64,
                        segmentation_backend=backend, **kw)
-    return mapmod.MappingPipeline(cfg, VoxelGrid.from_config(cfg), "cpu")
+    return mapmod.MappingPipeline(cfg, VoxelGrid.from_config(cfg), device)
 
 
 @pytest.mark.parametrize("backend", ["device", "host"])
@@ -473,3 +473,27 @@ def test_mapping_records_nothing_with_tracer_off(need_native):
         for occ in mapping_frames(2):
             pipe.process(occ, frame=0)
     assert profiling.snapshot() == {"spans": {}, "counters": {}}
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_segment_kernel_cycles(need_native, device):
+    """The device backend's cycles on the card each run the CUDA chain:
+    ``fusion.mapping.segment_kernel_cycles`` equals
+    ``fusion.mapping.cycles``, and the chain adds no fixpoint iterations.
+    On the CPU the twin runs, and the counter is absent."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    pipe = mapping_pipeline("device", device)
+    profiling.enable()
+    for f, occ in enumerate(mapping_frames()):
+        pipe.process(occ.to(device), frame=f)
+    c = profiling.snapshot()["counters"]
+    assert c["fusion.mapping.cycles"] == 4
+    if device == "cuda":
+        assert c["fusion.mapping.segment_kernel_cycles"] == 4
+        assert c["fusion.mapping.cc_iterations"] == 0
+        assert c["fusion.mapping.merge_iterations"] == 0
+    else:
+        assert "fusion.mapping.segment_kernel_cycles" not in c
+        assert c["fusion.mapping.cc_iterations"] >= 4 * 2
