@@ -5,16 +5,19 @@ A/B of two checkouts of the port on one GPU.
     python3 scripts/time_kernels.py [--root DIR] [--label NAME] [--split]
 
 Imports ``ros_gpu_depthmap_fusion_tpu_torch`` from ``DIR`` (default: this
-checkout; it builds that checkout's kernels) and ``chip_smoke.py``'s scene,
-configuration and timers from this checkout. Runs ``bench.py``'s link
-configuration (``chip_smoke.link_config``) for 8 frames, records the
-kernels' calls of frame ``chip_smoke.RECORD_FRAME`` and, on those inputs
+checkout; it builds that checkout's kernels), ``operating_point.py``'s
+scene and configuration and ``chip_smoke.py``'s timers from this checkout.
+Runs ``bench.py``'s link configuration (``operating_point.LINK_FIELDS``)
+for 8 frames, records the kernels' calls of frame
+``operating_point.RECORD_FRAME`` and, on those inputs
 (kernel 4, which the engine does not call: on that frame's masked metric
 depth, as ``chip_smoke.py``'s fused phase), prints one JSON line: the card
 and its power limit, the label, and per kernel and frame the device ms
 (``torch.profiler``, 20 calls after 3 warm-ups), the call ms (CUDA events
 around a call, median of 20) and the
-bound ms; for compact also the boolean-index library call. Run it for two
+bound ms (``portbench/pb/roofline.py``'s work and peaks,
+``call_bound_s``); for compact also the boolean-index
+library call. Run it for two
 roots in turns (A, B, B, A) in one process group on one card to compare
 them.
 
@@ -47,6 +50,7 @@ def main():
         raise SystemExit("time_kernels.py: no CUDA device")
     sys.path.insert(0, HERE)
     import chip_smoke as cs
+    import operating_point as op
     sys.path.insert(0, os.path.abspath(args.root))
     for mod in [m for m in sys.modules
                 if m.startswith("ros_gpu_depthmap_fusion_tpu_torch")]:
@@ -55,31 +59,22 @@ def main():
     if not os.path.abspath(pkg.__file__).startswith(
             os.path.abspath(args.root)):
         raise SystemExit(f"imported {pkg.__file__}, not from {args.root}")
-    from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
-    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
-        PinholeIntrinsics)
-    from ros_gpu_depthmap_fusion_tpu_torch.core import transforms
     from ros_gpu_depthmap_fusion_tpu_torch.ops import mask_ops, voxelize
     from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import (
         compact, flying_pixels, fused_unproject_rle, segreduce)
     from ros_gpu_depthmap_fusion_tpu_torch.pipeline import engine as engmod
 
-    kmods = {"segreduce": segreduce, "flying_pixels": flying_pixels,
-             "compact": compact}
     wrappers = {"segreduce": segreduce.segreduce,
                 "flying_pixels": flying_pixels.filter_flying_pixels,
                 "compact": compact.compact_rows}
-    cfg = cs.link_config(FusionConfig)
-    intr = PinholeIntrinsics.default_for(cs.W, cs.H)
-    scene = cs.Scene(transforms, seed=0)
+    cfg = op.config(op.LINK_FIELDS)
     eng = engmod.FusionEngine(cfg, device="cuda", pipeline_depth=1)
     mods = [("segreduce", voxelize, "segreduce"),
             ("flying_pixels", engmod, "filter_flying_pixels"),
             ("compact", mask_ops, "compact_rows"),
             ("unproject", engmod, "unproject_depthmaps")]
-    _, _, _, _, calls = cs.run_engine(torch, eng, scene, intr, 8, kmods,
-                                      cs.EXPECTED["link"],
-                                      record=(cs.RECORD_FRAME, mods))
+    calls = cs.run_engine(torch, eng, op.scene(), 8,
+                          record=(op.RECORD_FRAME, mods))[4]
     out = dict(gpu=cs.gpu_line(), label=args.label,
                root=os.path.abspath(args.root), kernels={})
     for name, kern in wrappers.items():
@@ -87,7 +82,7 @@ def main():
         for a, k, res in calls[name]:
             row["ms"] += cs.device_ms(torch, lambda: kern(*a, **k))
             row["call_ms"] += cs.cuda_ms(torch, lambda: kern(*a, **k))
-            row["bound_ms"] += cs.roofline(*cs.work_of(name, a, res))[0]
+            row["bound_ms"] += cs.roofline.call_bound_s(name, a, res) * 1e3
         if name == "compact":
             words, mask = calls[name][0][0][:2]
             row["library_ms"] = cs.device_ms(torch, lambda: words[mask])
@@ -98,7 +93,7 @@ def main():
         return fused_unproject_rle.unproject_voxelize_l1(*fargs)
     out["kernels"]["fused_unproject_rle"] = dict(
         ms=cs.device_ms(torch, fused), call_ms=cs.cuda_ms(torch, fused),
-        bound_ms=cs.roofline(*cs.fused_work(fargs, int(fused()[4])))[0])
+        bound_ms=cs.bound(*cs.fused_work(fargs, int(fused()[4])))[0])
     if args.split:
         out["segreduce_split_us"] = segreduce_split(torch, cs, segreduce,
                                                     calls["segreduce"][0])

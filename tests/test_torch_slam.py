@@ -435,8 +435,8 @@ def test_solve_window_matches_jax(odometry_runs):
     sums that each package rounds in its own order (this window's third
     step improves chi2 by 1.2e-6 relative in JAX, about ten ulps, and
     rounds the other way in the port); on this window that step moves no
-    pose by more than the 1e-4 bound (on others it can: ``chip_smoke.py
-    ba_card_vs_cpu``)."""
+    pose by more than the 1e-4 bound (on others it can:
+    ``test_torch_cuda.py ba_agree``)."""
     _, jodo, _ = odometry_runs
     jprob, _, _ = jodo.build_ba_window(8)
     tprob = ba.BAProblem(*(torch.from_numpy(np.asarray(x)) for x in jprob))
