@@ -51,7 +51,8 @@ phase:
     work): ``[kernel]`` lines, each engine kernel at each recorded call
     site (device ms from ``torch.profiler`` over 20 calls after 3
     warm-ups, ``call_ms`` by CUDA events, bound ms, the twin's, and for
-    compact ``rows[flags]``); ``[lidar kernels]``, ``[segment kernels]``
+    compact ``rows[flags]``); ``[lidar kernels]``, ``[segment kernels]``,
+    ``[group kernels]`` (the foreground grouping on that segmentation)
     (each held to its twin before it is timed);
     ``[publish step]``, each publish mode's whole step from its tapped
     state; ``[fused]``, kernel 4 (``unproject_voxelize_l1``, not on the
@@ -695,6 +696,67 @@ def segment_timing(torch, grid, cfg, gpu):
                 bound_ms=b_ms, bound_by=by)
 
 
+def group_work(seg, counts):
+    """Bytes the foreground grouping must move: the merged map read once,
+    the labels of the foreground cells read once, the counts and the rows
+    they size written once."""
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import (
+        group_rows_used)
+    fg, ncomp = counts
+    z = seg.merged_map.shape[0]
+    return (seg.merged_map.numel() * 4 + fg * 4 + 8
+            + 4 * group_rows_used(fg, ncomp, int(seg.num_merged), z))
+
+
+def group_timing(torch, grid, cfg, gpu):
+    """The foreground grouping (``mapping/segmentation.py
+    group_foreground``, ``csrc/group.cu``) and its plain twin on the
+    chain's segmentation of ``grid``, on the card: device ms and device
+    activities a call, call ms, launches a call by its counter, and the
+    bound (:func:`group_work`). Prints the ``[group kernels]`` line;
+    returns its numbers."""
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping import segmentation
+    seg = segmentation.segment(grid.cuda(), cfg.cc_max_labels_per_layer,
+                               cfg.max_objects)
+
+    def kernels():
+        return segmentation.group_foreground(seg)
+
+    def twin():
+        return segmentation.group_foreground_plain(seg)
+    before = segmentation.group_launches
+    got = kernels()
+    torch.cuda.synchronize()
+    n_launch = segmentation.group_launches - before
+    # the guard of the times: counts and rows equal to the twin's
+    ref = twin()
+    counts = ref.counts.tolist()
+    used = segmentation.group_rows_used(*counts, int(seg.num_merged),
+                                        grid.shape[0])
+    if not (torch.equal(got.counts, ref.counts)
+            and torch.equal(got.rows[:used], ref.rows[:used])):
+        raise AssertionError("group_foreground: kernels != twin")
+    ms, acts = device_profile(torch, kernels)
+    call = cuda_ms(torch, kernels)
+    t_ms, t_acts = device_profile(torch, twin, reps=5, warm=1)
+    t_call = cuda_ms(torch, twin, reps=5, warm=1)
+    b_ms, by = bound(group_work(seg, counts), 0)
+    print(f"[group kernels] group_foreground on the mapping grid's "
+          f"segmentation {tuple(grid.shape)}: {counts[0]} foreground cells,"
+          f" {counts[1]} components, {int(seg.num_merged)} merged ids: "
+          f"device ms {ms:.4f} ({acts:g} device activities, {n_launch} "
+          f"launches a call) | call_ms {call:.4f} | bound_ms {b_ms:.4f} "
+          f"({by}, {b_ms / ms:.4f} of the bound reached) | twin: device ms "
+          f"{t_ms:.4f} ({t_acts:g} device activities), call_ms "
+          f"{t_call:.4f} | {gpu}", flush=True)
+    return dict(name="group_foreground", route="cuda",
+                source="ros_gpu_depthmap_fusion_tpu_torch/csrc/group.cu",
+                replaces=None, foreground=counts[0], components=counts[1],
+                ms=ms, device_activities=acts, launches=n_launch,
+                call_ms=call, plain_ms=t_ms, plain_device_activities=t_acts,
+                plain_call_ms=t_call, bound_ms=b_ms, bound_by=by)
+
+
 class timed_calls:
     """Context manager: each ``(owner, attribute, key)`` callable is wrapped
     to append its host ms (``time.perf_counter`` around the call) to the
@@ -1185,6 +1247,7 @@ def main():
             sites[name][path] = r
     lidar_res = lidar_timing(torch, rbmod, cfg, lidar_rec, by_path, gpu)
     seg_res = segment_timing(torch, seg_grid, cfg, gpu)
+    group_res = group_timing(torch, seg_grid, cfg, gpu)
     del lidar_rec, seg_grid
     # the publish step of each mode, whole, from its tapped state: device
     # ms and device activities a step, and CUDA events around one step
@@ -1222,7 +1285,7 @@ def main():
                            for path, r in sites.get(name, {}).items()})
                for name in KERNELS]
     print(json.dumps({"kernels": kernels, "lidar_stages": lidar_res,
-                      "segment": seg_res}))
+                      "segment": seg_res, "group": group_res}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -196,6 +196,81 @@ def _stats_stub(m: int, voxel_count, centroid, vmin, vmax,
         vmax[m] if inb else _STUB_ZEROS3, grid)
 
 
+def _take(a, keep: np.ndarray) -> np.ndarray:
+    """Rows ``keep`` of ``a`` after a zero row (the background), zeros
+    where ``keep`` runs past ``a``."""
+    a = np.asarray(a)
+    out = np.zeros((len(keep) + 1,) + a.shape[1:], a.dtype)
+    ok = keep < len(a)
+    out[1:][ok] = a[keep[ok]]
+    return out
+
+
+def _select_groups(grouping: dict, keep: np.ndarray, z: int) -> dict:
+    """The grouping of the objects ``keep`` alone, renumbered 1, 2, ... in
+    their order: what the grouping of the native call's remapped lookup
+    table would be."""
+    gs = grouping["group_start"]
+    lo, hi = gs[keep * z], gs[(keep + 1) * z]
+    sizes = np.diff(gs)[(keep[:, None] * z + np.arange(z)).reshape(-1)]
+    starts = np.zeros((len(keep) + 1) * z + 1, np.int64)
+    np.cumsum(sizes, out=starts[z + 1:])
+    n = hi - lo
+    rows = np.repeat(lo - (np.cumsum(n) - n), n) + np.arange(n.sum())
+    remap = np.zeros((len(gs) - 1) // z, np.int32)
+    remap[keep] = np.arange(1, len(keep) + 1, dtype=np.int32)
+    comps = grouping["comps"]
+    comps = comps[remap[comps[:, 2]] > 0]
+    comps[:, 2] = remap[comps[:, 2]]
+    return dict(group_start=starts, pts_xy=grouping["pts_xy"][rows],
+                comps=comps)
+
+
+def _assembled(labels, merged_of_label, num_merged: int, voxel_count,
+               centroid, vmin, vmax, grid: VoxelGrid,
+               detail_mask: Optional[np.ndarray],
+               grouping: Optional[dict]) -> Optional[List[CCObject]]:
+    """Objects with contours from the native assembly over ``labels``, or
+    from a foreground grouping when one is given (the same flat arrays);
+    with a ``detail_mask`` the kept objects are assembled and the rest are
+    stubs. ``None`` when the assembly reports an overflow."""
+    stats = (voxel_count, centroid, vmin, vmax)
+    keep, m = None, num_merged
+    if detail_mask is not None:
+        keep = np.flatnonzero(np.asarray(detail_mask)[:num_merged])
+        keep = keep[keep > 0].astype(np.int64)
+        m = len(keep) + 1
+        stats = tuple(_take(a, keep) for a in stats)
+    cs, lo = grid.cell_size[:2], grid.lower[:2]
+    if grouping is not None:
+        if keep is not None:
+            grouping = _select_groups(grouping, keep, labels.shape[0])
+        res = native.assemble_grouped(labels, grouping, m, cs, lo)
+    else:
+        lut = merged_of_label
+        if keep is not None:
+            remap = np.zeros(max(num_merged, 1), np.int32)
+            remap[keep] = np.arange(1, m, dtype=np.int32)
+            lut = remap[np.clip(merged_of_label, 0, num_merged - 1)]
+        res = native.assemble_objects(labels, lut, m, cs, lo)
+    if res is None:
+        return None
+    objects = _objects_from_flat(res, m, *stats, grid)
+    if keep is None:
+        return objects
+    by_old = dict(zip(keep.tolist(), objects[1:]))
+    out = []
+    for k in range(num_merged):
+        obj = by_old.get(k)
+        if obj is not None:
+            obj.label = k
+            out.append(obj)
+        else:
+            out.append(_stats_stub(k, voxel_count, centroid, vmin, vmax,
+                                   grid))
+    return out
+
+
 def build_objects(labels: np.ndarray,
                   num_labels: np.ndarray,
                   merged_of_label: np.ndarray,
@@ -207,7 +282,8 @@ def build_objects(labels: np.ndarray,
                   grid: VoxelGrid,
                   with_contours: bool = True,
                   background_full: bool = False,
-                  detail_mask: Optional[np.ndarray] = None
+                  detail_mask: Optional[np.ndarray] = None,
+                  grouping: Optional[dict] = None
                   ) -> List[CCObject]:
     """Assemble CCObjects from (host copies of) the segmentation outputs.
 
@@ -223,48 +299,19 @@ def build_objects(labels: np.ndarray,
             they are provably skipped by tracking (min-rect area <= AABB
             area), and on cluttered/noisy grids the speck objects dominate
             assembly cost by an order of magnitude.
+        grouping: optional foreground grouping of these labels
+            (``mapping/segmentation.py grouping_arrays``, made on the
+            device): the geometry is then fitted over it
+            (``native.assemble_grouped``) instead of over passes of the
+            native call across every cell; the objects are the same.
     """
+    num_merged = int(num_merged)
     if with_contours and not background_full:
-        if detail_mask is not None:
-            keep = np.flatnonzero(np.asarray(detail_mask)[:num_merged])
-            keep = keep[keep > 0].astype(np.int64)
-            remap = np.zeros(max(num_merged, 1), np.int32)
-            remap[keep] = np.arange(1, len(keep) + 1, dtype=np.int32)
-            lut_small = remap[np.clip(merged_of_label, 0, num_merged - 1)]
-            k1 = len(keep) + 1
-
-            def _take(a, fill=0):
-                out = np.zeros((k1,) + np.asarray(a).shape[1:],
-                               np.asarray(a).dtype)
-                ok = keep < len(a)
-                out[1:][ok] = np.asarray(a)[keep[ok]]
-                return out
-
-            res = native.assemble_objects(labels, lut_small, k1,
-                                          grid.cell_size[:2], grid.lower[:2])
-            if res is not None:
-                detailed = _assemble_from_native(
-                    res, k1, _take(voxel_count), _take(centroid),
-                    _take(vmin), _take(vmax), grid)
-                by_old = {int(old): detailed[new]
-                          for new, old in enumerate(keep, start=1)}
-                out = []
-                for m in range(int(num_merged)):
-                    obj = by_old.get(m)
-                    if obj is not None:
-                        obj.label = m
-                        out.append(obj)
-                    else:
-                        out.append(_stats_stub(m, voxel_count, centroid,
-                                               vmin, vmax, grid))
-                return out
-        else:
-            res = native.assemble_objects(labels, merged_of_label,
-                                          num_merged, grid.cell_size[:2],
-                                          grid.lower[:2])
-            if res is not None:
-                return _assemble_from_native(res, num_merged, voxel_count,
-                                             centroid, vmin, vmax, grid)
+        objects = _assembled(labels, merged_of_label, num_merged,
+                             voxel_count, centroid, vmin, vmax, grid,
+                             detail_mask, grouping)
+        if objects is not None:
+            return objects
 
     z_layers, h, w = labels.shape
     objects: List[CCObject] = []
@@ -342,103 +389,97 @@ def build_objects(labels: np.ndarray,
     return objects
 
 
-def _shapes_from16(row: np.ndarray) -> ShapePair:
-    """Decode one fh_assemble_objects shape record: 16 doubles =
+def _shapes_from16(row: list) -> ShapePair:
+    """Decode one shape record of an assembly (a list of 16 floats):
     voxel (rect cx,cy,w,h,angle; circle cx,cy,r) then world (same 8)."""
-    vox = MinShapes(
-        geo.RotatedRect((float(row[0]), float(row[1])),
-                        (float(row[2]), float(row[3])), float(row[4])),
-        geo.EnclosingCircle((float(row[5]), float(row[6])), float(row[7])))
-    wrl = MinShapes(
-        geo.RotatedRect((float(row[8]), float(row[9])),
-                        (float(row[10]), float(row[11])), float(row[12])),
-        geo.EnclosingCircle((float(row[13]), float(row[14])),
-                            float(row[15])))
-    return ShapePair(world=wrl, voxel=vox)
+    vox = MinShapes(geo.RotatedRect((row[0], row[1]), (row[2], row[3]),
+                                    row[4]),
+                    geo.EnclosingCircle((row[5], row[6]), row[7]))
+    wrl = MinShapes(geo.RotatedRect((row[8], row[9]), (row[10], row[11]),
+                                    row[12]),
+                    geo.EnclosingCircle((row[13], row[14]), row[15]))
+    return ShapePair(wrl, vox)
 
 
-def _assemble_from_native(res: dict, num_merged: int,
-                          voxel_count: np.ndarray, centroid: np.ndarray,
-                          vmin: np.ndarray, vmax: np.ndarray,
-                          grid: VoxelGrid) -> List[CCObject]:
-    """Build the CCObject list from the flat arrays the native
-    ``fh_assemble_objects`` call produced (grouping, hulls, shapes and
-    contours all computed in C++; this wraps them in dataclasses)."""
+def _objects_from_flat(res: dict, num_merged: int,
+                       voxel_count: np.ndarray, centroid: np.ndarray,
+                       vmin: np.ndarray, vmax: np.ndarray,
+                       grid: VoxelGrid) -> List[CCObject]:
+    """Build the CCObject list from the flat arrays of an assembly
+    (``native.assemble_objects`` or ``native.assemble_grouped``: grouping,
+    hulls, shapes and contours all computed in C++). Points, top views and
+    contours are mapped to world coordinates once each, and the 3-D
+    contours built once; layers and components get views of them."""
     z_layers = res["num_layers"]
     gs = res["group_start"]
     pts = res["pts_xy"]
-    lsh = res["layer_shapes"]
     tvs = res["tv_start"]
     tvp = res["tv_xy"]
-    tsh = res["tv_shapes"]
     comp_zlm = res["comp_zlm"]
     cst = res["contour_start"]
-    cxy = res["contour_xy"]
-    csh = res["comp_shapes"]
+    nc = len(comp_zlm)
+    cxy = res["contour_xy"][:int(cst[nc])]
+    pts_w = _voxel_xy_to_world(grid, pts)
+    tv_w = _voxel_xy_to_world(grid, tvp)
     z_world = (np.arange(z_layers) * grid.cell_size[2] + grid.lower[2])
+    comp_z = np.repeat(comp_zlm[:, 0], np.diff(cst))
+    c3v = np.concatenate([cxy, comp_z[:, None].astype(np.int64)], axis=-1)
+    cxy_w = _voxel_xy_to_world(grid, cxy)
+    c3w = np.concatenate([cxy_w, z_world[comp_z][:, None]], axis=-1)
+    lsh = res["layer_shapes"].tolist()
+    tsh = res["tv_shapes"].tolist()
+    csh = res["comp_shapes"].tolist()
+    gs_l, tvs_l, cst_l = gs.tolist(), tvs.tolist(), cst.tolist()
+    zlm = comp_zlm.tolist()
+
+    # every object's statistics and box at once; objects past the
+    # statistics' slots read zeros
+    n = num_merged
+    cen = np.zeros((n, 2))
+    mn, mx = np.zeros((n, 3), np.int64), np.zeros((n, 3), np.int64)
+    cen[:min(n, len(centroid))] = centroid[:n, :2]
+    mn[:min(n, len(vmin))] = vmin[:n]
+    mx[:min(n, len(vmax))] = vmax[:n]
+    cen_l = cen.tolist()
+    center = (mn + mx) / 2.0
+    center_w = _voxel_xyz_to_world(grid, center)
+    mn_w, mx_w = _voxel_xyz_to_world(grid, mn), _voxel_xyz_to_world(grid, mx)
+    size, size_w = mx - mn, mx_w - mn_w
 
     # pre-bucket component rows per merged label (keeps (z, local) order)
     comp_rows_of: List[List[int]] = [[] for _ in range(num_merged)]
-    for ci in range(len(comp_zlm)):
-        m = int(comp_zlm[ci, 2])
+    for ci, (_, _, m) in enumerate(zlm):
         if 0 <= m < num_merged:
             comp_rows_of[m].append(ci)
 
     objects: List[CCObject] = []
     for m in range(num_merged):
-        cen = centroid[m] if m < len(centroid) else np.zeros(3)
-        mn = vmin[m].astype(np.int64) if m < len(vmin) else np.zeros(3, int)
-        mx = vmax[m].astype(np.int64) if m < len(vmax) else np.zeros(3, int)
-
         components: List[ObjectComponent] = []
         layer_objs: List[ObjectLayer] = []
         topview = None
         if m > 0:
             for z in range(z_layers):
                 g = m * z_layers + z
-                lo, hi = int(gs[g]), int(gs[g + 1])
+                lo, hi = gs_l[g], gs_l[g + 1]
                 if hi == lo:
                     continue
-                pts2d = pts[lo:hi]
                 layer_objs.append(ObjectLayer(
-                    layer=z, points2d_voxel=pts2d,
-                    points2d_world=_voxel_xy_to_world(grid, pts2d),
-                    shapes=_shapes_from16(lsh[g])))
+                    z, pts[lo:hi], pts_w[lo:hi], _shapes_from16(lsh[g])))
             for ci in comp_rows_of[m]:
-                z = int(comp_zlm[ci, 0])
-                contour = cxy[int(cst[ci]):int(cst[ci + 1])]
-                contour_w = _voxel_xy_to_world(grid, contour)
-                k = len(contour)
-                c3v = np.concatenate(
-                    [contour, np.full((k, 1), z)], axis=-1)
-                c3w = np.concatenate(
-                    [contour_w, np.full((k, 1), z_world[z])], axis=-1)
+                lo, hi = cst_l[ci], cst_l[ci + 1]
                 components.append(ObjectComponent(
-                    layer=z, local_label=int(comp_zlm[ci, 1]),
-                    contour2d_voxel=contour, contour2d_world=contour_w,
-                    contour3d_voxel=c3v, contour3d_world=c3w,
-                    shapes=_shapes_from16(csh[ci])))
-            lo, hi = int(tvs[m]), int(tvs[m + 1])
+                    zlm[ci][0], zlm[ci][1], cxy[lo:hi], cxy_w[lo:hi],
+                    c3v[lo:hi], c3w[lo:hi], _shapes_from16(csh[ci])))
+            lo, hi = tvs_l[m], tvs_l[m + 1]
             if hi > lo:
-                tv = tvp[lo:hi]
-                topview = ObjectLayer(
-                    layer=-1, points2d_voxel=tv,
-                    points2d_world=_voxel_xy_to_world(grid, tv),
-                    shapes=_shapes_from16(tsh[m]))
-
-        center_vox = (mn + mx) / 2.0
+                topview = ObjectLayer(-1, tvp[lo:hi], tv_w[lo:hi],
+                                      _shapes_from16(tsh[m]))
         objects.append(CCObject(
-            label=m,
-            centroid=(float(cen[0]), float(cen[1])),
-            num_components=len(components),
-            num_layers=len(layer_objs),
-            center_coord_voxel=center_vox,
-            center_coord_world=_voxel_xyz_to_world(grid, center_vox),
-            min_coord_voxel=mn, max_coord_voxel=mx,
-            min_coord_world=_voxel_xyz_to_world(grid, mn),
-            max_coord_world=_voxel_xyz_to_world(grid, mx),
-            aabb_size_voxel=mx - mn,
-            aabb_size_world=_voxel_xyz_to_world(grid, mx)
-            - _voxel_xyz_to_world(grid, mn),
+            label=m, centroid=tuple(cen_l[m]),
+            num_components=len(components), num_layers=len(layer_objs),
+            center_coord_world=center_w[m], center_coord_voxel=center[m],
+            min_coord_voxel=mn[m], max_coord_voxel=mx[m],
+            min_coord_world=mn_w[m], max_coord_world=mx_w[m],
+            aabb_size_voxel=size[m], aabb_size_world=size_w[m],
             components=components, layers=layer_objs, topview=topview))
     return objects

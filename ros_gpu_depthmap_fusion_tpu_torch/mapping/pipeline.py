@@ -11,8 +11,11 @@ library is missing (JAX falls back to the device program); a sparse
 occupancy that overflowed its capacity without a dense fallback raises
 ``ValueError`` (JAX: a bare ``assert``); the worker re-raises an exception
 of its thread from :meth:`AsyncMappingWorker.latest`, ``submit`` and
-``close`` (JAX's thread dies silently); and labels stay int32 on the
-device and are narrowed to u16 on the host copy.
+``close`` (JAX's thread dies silently); labels stay int32 on the
+device and are narrowed to u16 on the host copy; and the device backend
+groups the foreground on the device, so that the host assembles the
+objects from the foreground rows rather than from passes over every cell
+(the same objects).
 
 Traced (:mod:`..utils.profiling`, on whichever thread runs the cycle):
 span ``fusion.mapping`` is one cycle, with ``.segment`` (the device or
@@ -27,7 +30,10 @@ adds 0), ``.objects`` (merged objects, the background not counted),
 ``.labels_dropped`` (layers whose labels reached
 ``cc_max_labels_per_layer``: the last may hold several components) and
 ``.objects_dropped`` (merged objects without statistics of their own,
-beyond ``max_objects``); gauge ``fusion.mapping.tracks`` (live tracks).
+beyond ``max_objects``), ``.grouped_cycles`` (cycles whose objects were
+built from the device backend's foreground grouping) and
+``.foreground_cells`` (the rows of those groupings); gauge
+``fusion.mapping.tracks`` (live tracks).
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
 from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
 from ros_gpu_depthmap_fusion_tpu_torch.mapping.objects import (
     CCObject, build_objects)
-from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import segment
+from ros_gpu_depthmap_fusion_tpu_torch.mapping.segmentation import (
+    group_foreground, group_rows_used, grouping_arrays, segment)
 from ros_gpu_depthmap_fusion_tpu_torch.mapping.tracking import (
     CCObjectTrack, TrackingStats, track_objects)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import occupancy_bitmap
@@ -79,9 +86,12 @@ class MappingPipeline:
 
     Segmentation backends (``cfg.segmentation_backend``):
 
-    - ``"device"``: :func:`.segmentation.segment` on ``device`` (a CUDA
-      device runs it on the pipeline's own stream, after the caller's
-      current stream), its results copied back in one transfer;
+    - ``"device"``: :func:`.segmentation.segment` and
+      :func:`.segmentation.group_foreground` on ``device`` (a CUDA device
+      runs them on the pipeline's own stream, after the caller's current
+      stream), the results and the grouping's counts copied back in one
+      transfer and the grouping's rows in a second; the objects are then
+      assembled from the grouping;
     - ``"host"``: the native ``fh_segment_grid`` on the host; only the
       occupancy bitmap crosses to the host. Raises without the native
       library;
@@ -103,6 +113,11 @@ class MappingPipeline:
             raise ValueError(f"segmentation_backend={backend!r}: 'auto', "
                              "'host' or 'device'")
         self.backend = backend
+        if backend == "device":
+            # the objects' host geometry library builds on first use: start
+            # it now, beside the engine's first step and its kernels' build
+            threading.Thread(target=native.prebuild_grouped,
+                             daemon=True).start()
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         #: (d2h, segment, assemble + track) ms of the latest host-backend
@@ -120,8 +135,9 @@ class MappingPipeline:
                 occ, self.cfg.cc_max_labels_per_layer, host_cap)
 
     def _segment_device(self, occ: torch.Tensor) -> dict:
-        """:func:`segment` on ``self.device``; the results come back to the
-        host in one copy."""
+        """:func:`segment` and :func:`group_foreground` on ``self.device``;
+        the results and the grouping's counts come back to the host in one
+        copy, the grouping's rows they size in a second."""
         caller = (torch.cuda.current_stream(self.device)
                   if self._stream is not None else None)
         with torch.cuda.stream(self._stream):
@@ -131,23 +147,36 @@ class MappingPipeline:
                 seg = segment(occ.to(self.device),
                               max_labels=self.cfg.cc_max_labels_per_layer,
                               max_objects=self.cfg.max_objects)
+            groups = group_foreground(seg)
             parts = (seg.labels, seg.num_labels, seg.merged_of_label,
                      seg.num_merged, seg.voxel_count,
-                     seg.centroid.view(torch.int32), seg.vmin, seg.vmax)
+                     seg.centroid.view(torch.int32), seg.vmin, seg.vmax,
+                     groups.counts)
             with profiling.span("fusion.mapping.fetch"):
                 flat = torch.cat([p.reshape(-1)
                                   for p in parts]).cpu().numpy()
+                out, off = [], 0
+                for p in parts:
+                    out.append(flat[off:off + p.numel()].reshape(p.shape))
+                    off += p.numel()
+                num_merged, z = int(out[3]), seg.labels.shape[0]
+                fg, ncomp = out[8].tolist()
+                rows = groups.rows[:group_rows_used(fg, ncomp, num_merged,
+                                                    z)]
+                if rows.is_cuda:
+                    rows = torch.empty(rows.shape, dtype=rows.dtype,
+                                       pin_memory=True).copy_(
+                                           rows, non_blocking=True)
+                    self._stream.synchronize()
         profiling.count("fusion.mapping.cc_iterations", seg.iterations[0])
         profiling.count("fusion.mapping.merge_iterations",
                         seg.iterations[1])
-        out, off = [], 0
-        for p in parts:
-            out.append(flat[off:off + p.numel()].reshape(p.shape))
-            off += p.numel()
         return dict(labels=out[0].astype(np.uint16), num_labels=out[1],
-                    merged_of_label=out[2], num_merged=int(out[3]),
+                    merged_of_label=out[2], num_merged=num_merged,
                     voxel_count=out[4], centroid=out[5].view(np.float32),
-                    vmin=out[6], vmax=out[7])
+                    vmin=out[6], vmax=out[7],
+                    grouping=grouping_arrays(fg, ncomp, num_merged, z,
+                                             rows.numpy()))
 
     def _detail_mask(self, res: dict) -> Optional[np.ndarray]:
         """Detail-pruning mask: objects whose world-xy AABB area is below
@@ -288,6 +317,7 @@ class MappingPipeline:
                 with_contours: bool) -> MappingResult:
         dt = self.cfg.tracking_dt if dt is None else dt
         num_merged = int(res["num_merged"])
+        grouping = res.get("grouping")
         with profiling.span("fusion.mapping.objects"):
             objects = build_objects(
                 labels=res["labels"], num_labels=res["num_labels"],
@@ -296,7 +326,7 @@ class MappingPipeline:
                 voxel_count=res["voxel_count"], centroid=res["centroid"],
                 vmin=res["vmin"], vmax=res["vmax"], grid=self.grid,
                 with_contours=with_contours,
-                detail_mask=self._detail_mask(res))
+                detail_mask=self._detail_mask(res), grouping=grouping)
         with profiling.span("fusion.mapping.track"):
             stats = track_objects(objects, self.tracks,
                                   self.cfg.object_min_area, dt,
@@ -308,6 +338,10 @@ class MappingPipeline:
                  >= self.cfg.cc_max_labels_per_layer).sum()))
             profiling.count("fusion.mapping.objects_dropped",
                             max(num_merged - len(res["voxel_count"]), 0))
+            if grouping is not None and with_contours:
+                profiling.count("fusion.mapping.grouped_cycles")
+                profiling.count("fusion.mapping.foreground_cells",
+                                len(grouping["pts_xy"]))
             profiling.gauge("fusion.mapping.tracks", len(self.tracks))
         return MappingResult(objects=objects, tracks=self.tracks,
                              stats=stats, num_merged=num_merged)

@@ -19,6 +19,11 @@ program in plain PyTorch, built from:
   merges only with label 0; merged ids dense in ascending order of their
   smallest global label, background = 0).
 
+:func:`group_foreground` (port only: the JAX package assembles objects
+from the dense labels on the host) groups the foreground cells of a
+segmentation by (object, layer) on its device: ``csrc/group.cu`` on a
+CUDA tensor, :func:`group_foreground_plain` on a CPU one.
+
 Every step is integer and exact, so any device gives the JAX program's
 labels, merge table and boxes, and the kernels give the twin's bit for
 bit. The twin's fixpoint loops test for change on the host (one
@@ -33,8 +38,10 @@ and closer to the native float64 centroid above.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ros_gpu_depthmap_fusion_tpu_torch.utils import profiling
@@ -405,3 +412,142 @@ def segment(occ_layers: torch.Tensor, max_labels: int,
         labels=labels, num_labels=num_labels, merged_of_label=mol,
         merged_map=merged_map, num_merged=num_merged, voxel_count=count,
         centroid=centroid, vmin=vmin, vmax=vmax, iterations=(0, 0))
+
+
+# --- the foreground grouping (csrc/group.cu) ---------------------------------
+
+#: launches of the CUDA kernels by :func:`group_foreground` in this process
+group_launches = 0
+
+
+class ForegroundGroups(NamedTuple):
+    """The foreground of a segmentation grouped by (object, layer): cells
+    whose merged id m lies in ``[1, num_merged)``. ``rows`` holds, back to
+    back with M = num_merged: ``group_start`` ``[M * Z + 1]`` (group
+    (m, z)'s first row, groups in (m, z) order), ``xy`` ``[fg, 2]`` (each
+    cell's (x, y), raster order within a group) and ``comps``
+    ``[ncomp, 4]`` ((z, l, m, first raster index in the layer) of each
+    component (z, l > 0) holding such a cell, in ascending (z, l)); past
+    them its contents are unspecified. :func:`grouping_arrays` splits a
+    host copy."""
+    counts: torch.Tensor   # [2] int32: fg, ncomp
+    rows: torch.Tensor     # [group_capacity(Z, Y, X, L)] int32
+
+
+def group_capacity(z: int, y: int, x: int, l: int) -> int:
+    """Rows :func:`group_foreground` may fill: group starts for up to
+    ``Z * L`` merged ids, every cell's (x, y), every label's component."""
+    return z * l * z + 1 + 2 * z * y * x + 4 * z * l
+
+
+def group_rows_used(fg: int, ncomp: int, num_merged: int, z: int) -> int:
+    """Rows of ``ForegroundGroups.rows`` that hold the grouping."""
+    return num_merged * z + 1 + 2 * fg + 4 * ncomp
+
+
+def group_launches_per_call(z: int, l: int) -> int:
+    """Kernels :func:`group_foreground` launches on a CUDA device (after a
+    memset): the compaction, three a radix pass over merged ids below
+    ``Z * L`` (8 bits a pass, at least one), the finish."""
+    return 2 + 3 * max(1, -(-(z * l - 1).bit_length() // 8))
+
+
+def grouping_arrays(fg: int, ncomp: int, num_merged: int, z: int,
+                    rows) -> dict:
+    """The host copy of a grouping's used rows (numpy int32, at least
+    :func:`group_rows_used`) as ``build_objects``' ``grouping``:
+    ``group_start`` int64 ``[M * Z + 1]``, ``pts_xy`` int32 ``[fg, 2]``
+    and ``comps`` int32 ``[ncomp, 4]``, views of ``rows`` but the
+    first."""
+    ng = num_merged * z + 1
+    return dict(group_start=rows[:ng].astype(np.int64),
+                pts_xy=rows[ng:ng + 2 * fg].reshape(fg, 2),
+                comps=rows[ng + 2 * fg:ng + 2 * fg + 4 * ncomp]
+                .reshape(ncomp, 4))
+
+
+def group_foreground_plain(seg: SegmentationResult) -> ForegroundGroups:
+    """Plain PyTorch twin of :func:`group_foreground` (a stable sort of
+    the foreground's flat indices by (m, z)), on the segmentation's
+    device; the rows past the grouping are zero."""
+    mm = seg.merged_map
+    z, y, x = mm.shape
+    l = seg.merged_of_label.shape[1]
+    dev = mm.device
+    m_n = int(seg.num_merged)
+    hw = y * x
+    flat = mm.reshape(-1)
+    g = torch.nonzero((flat >= 1) & (flat < m_n)).squeeze(1)
+    layer, pix = g // hw, g % hw
+    key, order = torch.sort(flat[g].long() * z + layer, stable=True)
+    starts = torch.searchsorted(
+        key, torch.arange(m_n * z + 1, dtype=torch.long, device=dev))
+    p = pix[order]
+    xy = torch.stack([p % x, p // x], 1)
+    lab = seg.labels.reshape(-1)[g].long()
+    has = (lab > 0) & (lab < l)
+    first = torch.full((z * l,), hw, dtype=torch.long, device=dev)
+    first.scatter_reduce_(0, (layer * l + lab)[has], pix[has], "amin")
+    ci = torch.nonzero(first < hw).squeeze(1)
+    comps = torch.stack([ci // l, ci % l,
+                         seg.merged_of_label.reshape(-1)[ci].long(),
+                         first[ci]], 1)
+    used = torch.cat([starts, xy.reshape(-1), comps.reshape(-1)])
+    rows = torch.zeros(group_capacity(z, y, x, l), dtype=_I32, device=dev)
+    rows[:used.numel()] = used.to(_I32)
+    return ForegroundGroups(
+        torch.tensor([g.numel(), ci.numel()], dtype=_I32, device=dev), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _group_entries():
+    """csrc/group.cu's scratch size and launch entries."""
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import _build
+    size = _build.library().fusion_group_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
+    return size, _build.function("fusion_group", (ctypes.c_void_p,) * 4
+                                 + (ctypes.c_int,) * 4
+                                 + (ctypes.c_void_p,) * 4)
+
+
+def group_foreground(seg: SegmentationResult) -> ForegroundGroups:
+    """Group the foreground of ``seg`` (a :func:`segment` result) by
+    (object, layer) on its device, for the host's object assembly.
+
+    A CPU segmentation runs :func:`group_foreground_plain`. A CUDA one
+    launches csrc/group.cu on the current stream (a memset and
+    :func:`group_launches_per_call` kernels), built on first use; it never
+    waits for the device. Raises ``ValueError`` on a grid whose rows
+    would not fit 32-bit indices."""
+    dev = seg.merged_map.device
+    if dev.type == "cpu":
+        return group_foreground_plain(seg)
+    if dev.type != "cuda":
+        raise ValueError(f"group_foreground: unsupported device {dev}")
+    z, y, x = seg.merged_map.shape
+    l = seg.merged_of_label.shape[1]
+    cap = group_capacity(z, y, x, l)
+    if cap >= 2 ** 31:
+        raise ValueError(f"group_foreground: {cap} rows for a "
+                         f"{(z, y, x)} grid of {l} labels a layer exceed "
+                         f"32-bit indices")
+    for name in ("labels", "merged_map", "merged_of_label", "num_merged"):
+        t = getattr(seg, name)
+        if t.dtype != _I32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"group_foreground: {name} must be a "
+                             f"contiguous int32 tensor on {dev}")
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.kernels import _build
+    scratch_bytes, fn = _group_entries()
+    scratch = torch.empty((scratch_bytes(z, y, x, l),), dtype=torch.uint8,
+                          device=dev)
+    counts = torch.empty((2,), dtype=_I32, device=dev)
+    rows = torch.empty((cap,), dtype=_I32, device=dev)
+    p = _build.ptr
+    status = fn(p(seg.labels), p(seg.merged_map), p(seg.merged_of_label),
+                p(seg.num_merged), z, y, x, l, p(scratch), p(counts),
+                p(rows), _build.stream_ptr(seg.merged_map))
+    _build.check(status, "group_foreground")
+    global group_launches
+    group_launches += group_launches_per_call(z, l)
+    return ForegroundGroups(counts, rows)

@@ -9,7 +9,11 @@ A copy of the JAX package's ``utils/native.py`` (the port cannot import
 it: importing anything of that package imports jax). Both packages load
 the same library, which ``make -C native`` builds from
 ``native/src/fusionhost.cpp`` at first use (gcc with OpenMP; the library
-is git-ignored).
+is git-ignored). The port's own host library, ``csrc/assemble_grouped.cpp``
+(the object geometry over a foreground grouping, which includes
+``fusionhost.cpp`` unchanged), is built at first use too, with the
+Makefile's compiler and flags, into ``_build/`` under a name that hashes
+its sources, the flags, the compiler and the host's CPU.
 
 Differences from the JAX copy: the library is built under a private name
 and renamed into place (test workers may build it at once); the encoders'
@@ -25,7 +29,9 @@ the host segmentation backend never silently becomes another.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import re
 import subprocess
 import threading
 from typing import Optional
@@ -36,11 +42,16 @@ _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libfusionhost.so")
 
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_GROUPED_SRC = os.path.join(_PKG_DIR, "csrc", "assemble_grouped.cpp")
+
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _error = ""
 _load_lock = threading.Lock()
 _scratch = threading.local()
+_grouped: Optional[ctypes.CDLL] = None
+_grouped_lock = threading.Lock()
 
 
 def _build() -> bool:
@@ -152,6 +163,96 @@ def require() -> ctypes.CDLL:
             "load, and the depth-link encoders and the host mapping need "
             f"it: {_error}")
     return lib
+
+
+def _compilers():
+    """The Makefile's compiler (``$CXX``, else ``g++``), then ``g++`` (an
+    environment may set ``CXX`` to a compiler that lacks OpenMP)."""
+    return list(dict.fromkeys([os.environ.get("CXX") or "g++", "g++"]))
+
+
+def _makefile_flags() -> list:
+    """``CXXFLAGS`` of ``native/Makefile``: the grouped geometry is built
+    as the native library is, so its arithmetic is the same."""
+    with open(os.path.join(_NATIVE_DIR, "Makefile")) as f:
+        m = re.search(r"^CXXFLAGS\s*\?=\s*(.+)$", f.read(), re.M)
+    return m.group(1).split()
+
+
+def _cpu_model() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((ln for ln in f if ln.startswith("model name")), "")
+    except OSError:
+        return ""
+
+
+def grouped_library() -> ctypes.CDLL:
+    """The port's grouped-geometry library (``csrc/assemble_grouped.cpp``),
+    built on first use under a private name and renamed into place; raises
+    ``RuntimeError`` saying why it did not build (``OSError`` if it does
+    not load)."""
+    global _grouped
+    with _grouped_lock:
+        if _grouped is not None:
+            return _grouped
+        flags = _makefile_flags()
+        h = hashlib.sha256()
+        for path in (_GROUPED_SRC,
+                     os.path.join(_NATIVE_DIR, "src", "fusionhost.cpp")):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        h.update(" ".join(flags + _compilers()).encode())
+        h.update(_cpu_model().encode())
+        build = os.path.join(_PKG_DIR, "_build")
+        path = os.path.join(build, f"libgrouped_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(path):
+            os.makedirs(build, exist_ok=True)
+            tmp = f"{path}.tmp{os.getpid()}"
+            errors = []
+            for cxx in _compilers():
+                try:
+                    proc = subprocess.run(
+                        [cxx, *flags, "-I", os.path.join(_NATIVE_DIR, "src"),
+                         "-shared", "-o", tmp, _GROUPED_SRC],
+                        capture_output=True, text=True, timeout=300)
+                except (OSError, subprocess.TimeoutExpired) as e:
+                    errors.append(repr(e))
+                    continue
+                if proc.returncode == 0:
+                    os.replace(tmp, path)
+                    break
+                errors.append(f"{cxx} -> {proc.returncode}: "
+                              f"{proc.stderr.strip()[-400:]}")
+            else:
+                raise RuntimeError(f"building {_GROUPED_SRC} failed: "
+                                   + " | ".join(errors))
+        lib = ctypes.CDLL(path)
+        u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        i32, f64 = ctypes.c_int32, ctypes.c_double
+        lib.fg_assemble_grouped.argtypes = [
+            u16p, i32, i32, i32, i32, f64, f64, f64, f64,
+            i64p, i32p, i32p, i32,   # group_start, pts_xy, comps, nc
+            i64p, i32p, f64p,        # hull_start, hull_xy, layer_shapes
+            i64p, i32p,              # tv_start, tv_xy
+            i64p, i32p, f64p,        # tv_hull_start, tv_hull_xy, tv_shapes
+            i32p, i64p, i32p, ctypes.c_int64, f64p]
+        lib.fg_assemble_grouped.restype = i32
+        _grouped = lib
+        return lib
+
+
+def prebuild_grouped() -> None:
+    """:func:`grouped_library` for its build alone, on a thread a caller
+    starts early (the build takes seconds). A failure is left to the first
+    call that needs the library, which raises it."""
+    try:
+        grouped_library()
+    except (RuntimeError, OSError):
+        pass
 
 
 def _zz_scratch(n: int) -> np.ndarray:
@@ -394,6 +495,47 @@ def trace_contour(mask: np.ndarray, sy: int, sx: int) -> np.ndarray:
     return out[:2 * n].reshape(-1, 2)
 
 
+def _assembly_buffers(fg: int, ncomp: int, m: int, z: int):
+    """``fh_assemble_objects``' outputs for ``fg`` foreground cells,
+    ``ncomp`` components and ``m`` merged ids on ``z`` layers, zeroed,
+    and the contour capacity."""
+    ng = m * z
+    pts = max(2 * fg, 2)
+    contour_cap = 4 * fg + 16 * ncomp + 64
+    return dict(group_start=np.zeros(ng + 1, np.int64),
+                pts_xy=np.zeros(pts, np.int32),
+                hull_start=np.zeros(ng + 1, np.int64),
+                hull_xy=np.zeros(pts, np.int32),
+                layer_shapes=np.zeros(16 * ng, np.float64),
+                tv_start=np.zeros(m + 1, np.int64),
+                tv_xy=np.zeros(pts, np.int32),
+                tv_hull_start=np.zeros(m + 1, np.int64),
+                tv_hull_xy=np.zeros(pts, np.int32),
+                tv_shapes=np.zeros(16 * m, np.float64),
+                comp_zlm=np.zeros(max(3 * ncomp, 3), np.int32),
+                contour_start=np.zeros(ncomp + 1, np.int64),
+                contour_xy=np.zeros(2 * contour_cap, np.int32),
+                comp_shapes=np.zeros(max(16 * ncomp, 16), np.float64)), \
+        contour_cap
+
+
+def _assembly_result(a: dict, m: int, z: int, nc: int) -> dict:
+    """The flat arrays of an assembly (the JAX copy's layout)."""
+    return dict(
+        num_merged=m, num_layers=z,
+        group_start=a["group_start"], pts_xy=a["pts_xy"].reshape(-1, 2),
+        hull_start=a["hull_start"], hull_xy=a["hull_xy"].reshape(-1, 2),
+        layer_shapes=a["layer_shapes"].reshape(m * z, 16),
+        tv_start=a["tv_start"], tv_xy=a["tv_xy"].reshape(-1, 2),
+        tv_hull_start=a["tv_hull_start"],
+        tv_hull_xy=a["tv_hull_xy"].reshape(-1, 2),
+        tv_shapes=a["tv_shapes"].reshape(m, 16),
+        comp_zlm=a["comp_zlm"].reshape(-1, 3)[:nc],
+        contour_start=a["contour_start"][:nc + 1],
+        contour_xy=a["contour_xy"].reshape(-1, 2),
+        comp_shapes=a["comp_shapes"].reshape(-1, 16)[:nc])
+
+
 def assemble_objects(labels: np.ndarray, merged_of_label: np.ndarray,
                      num_merged: int, cell_size_xy, lower_xy):
     """Per-frame object assembly (``fh_assemble_count`` +
@@ -411,24 +553,7 @@ def assemble_objects(labels: np.ndarray, merged_of_label: np.ndarray,
     sizes = np.zeros(2, np.int64)
     lib.fh_assemble_count(lab.reshape(-1), z, h, w, lut.reshape(-1), nl, m,
                           sizes)
-    fg, ncomp = int(sizes[0]), int(sizes[1])
-    ng = m * z
-    pts = max(2 * fg, 2)
-    a = dict(group_start=np.zeros(ng + 1, np.int64),
-             pts_xy=np.zeros(pts, np.int32),
-             hull_start=np.zeros(ng + 1, np.int64),
-             hull_xy=np.zeros(pts, np.int32),
-             layer_shapes=np.zeros(16 * ng, np.float64),
-             tv_start=np.zeros(m + 1, np.int64),
-             tv_xy=np.zeros(pts, np.int32),
-             tv_hull_start=np.zeros(m + 1, np.int64),
-             tv_hull_xy=np.zeros(pts, np.int32),
-             tv_shapes=np.zeros(16 * m, np.float64),
-             comp_zlm=np.zeros(max(3 * ncomp, 3), np.int32),
-             contour_start=np.zeros(ncomp + 1, np.int64))
-    contour_cap = 4 * fg + 16 * ncomp + 64
-    a["contour_xy"] = np.zeros(2 * contour_cap, np.int32)
-    a["comp_shapes"] = np.zeros(max(16 * ncomp, 16), np.float64)
+    a, contour_cap = _assembly_buffers(int(sizes[0]), int(sizes[1]), m, z)
     nc = int(lib.fh_assemble_objects(
         lab.reshape(-1), z, h, w, lut.reshape(-1), nl, m,
         float(cell_size_xy[0]), float(cell_size_xy[1]),
@@ -439,19 +564,41 @@ def assemble_objects(labels: np.ndarray, merged_of_label: np.ndarray,
         a["contour_xy"], contour_cap, a["comp_shapes"]))
     if nc < 0:
         return None
-    return dict(
-        num_merged=m, num_layers=z,
-        group_start=a["group_start"], pts_xy=a["pts_xy"].reshape(-1, 2),
-        hull_start=a["hull_start"], hull_xy=a["hull_xy"].reshape(-1, 2),
-        layer_shapes=a["layer_shapes"].reshape(ng, 16),
-        tv_start=a["tv_start"], tv_xy=a["tv_xy"].reshape(-1, 2),
-        tv_hull_start=a["tv_hull_start"],
-        tv_hull_xy=a["tv_hull_xy"].reshape(-1, 2),
-        tv_shapes=a["tv_shapes"].reshape(m, 16),
-        comp_zlm=a["comp_zlm"].reshape(-1, 3)[:nc],
-        contour_start=a["contour_start"][:nc + 1],
-        contour_xy=a["contour_xy"].reshape(-1, 2),
-        comp_shapes=a["comp_shapes"].reshape(-1, 16)[:nc])
+    return _assembly_result(a, m, z, nc)
+
+
+def assemble_grouped(labels: np.ndarray, grouping: dict, num_merged: int,
+                     cell_size_xy, lower_xy):
+    """:func:`assemble_objects` from a foreground grouping
+    (``mapping/segmentation.py grouping_arrays``: ``group_start`` int64
+    ``[M * Z + 1]``, ``pts_xy`` int32 ``[fg, 2]``, ``comps`` int32
+    ``[ncomp, 4]``) made for the same labels and ``num_merged`` ids: the
+    same dict, array for array, from the port's
+    ``csrc/assemble_grouped.cpp``, which passes over the foreground alone
+    and traces the contours on ``labels``. ``None`` on an overflow, as
+    there."""
+    lib = grouped_library()
+    lab = np.ascontiguousarray(labels, np.uint16)
+    z, h, w = lab.shape
+    m = max(int(num_merged), 1)
+    xy = grouping["pts_xy"]
+    comps = np.ascontiguousarray(grouping["comps"], np.int32)
+    fg, nc = len(xy), len(comps)
+    a, contour_cap = _assembly_buffers(fg, nc, m, z)
+    a["group_start"][:] = grouping["group_start"]
+    a["pts_xy"][:2 * fg] = xy.reshape(-1)
+    rc = int(lib.fg_assemble_grouped(
+        lab.reshape(-1), z, h, w, m,
+        float(cell_size_xy[0]), float(cell_size_xy[1]),
+        float(lower_xy[0]), float(lower_xy[1]),
+        a["group_start"], a["pts_xy"], comps.reshape(-1), nc,
+        a["hull_start"], a["hull_xy"], a["layer_shapes"], a["tv_start"],
+        a["tv_xy"], a["tv_hull_start"], a["tv_hull_xy"], a["tv_shapes"],
+        a["comp_zlm"], a["contour_start"], a["contour_xy"], contour_cap,
+        a["comp_shapes"]))
+    if rc < 0:
+        return None
+    return _assembly_result(a, m, z, nc)
 
 
 def segment_grid(occ_zyx: np.ndarray, max_labels: int, max_objects: int):

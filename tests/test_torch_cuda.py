@@ -752,6 +752,164 @@ def test_segment_chain_refuses_what_it_does_not_take(dev):
     assert segmentation.launches == before
 
 
+# -- the foreground grouping (csrc/group.cu) and the object assembly ------
+
+#: the mapping tests' grid, [Z, Y, X]
+ZYX = (7, 40, 48)
+
+
+def mapping_scene(n=5, seed=5):
+    """``n`` frames of ``[Z, Y, X]`` occupancy: boxes drifting a cell a
+    frame, one growing, plus fresh speckle (the mapping tests' scene)."""
+    rng = np.random.default_rng(seed)
+    z, y, x = ZYX
+    boxes = [(int(rng.integers(0, x - 16)), int(rng.integers(0, y - 14)),
+              int(rng.integers(3, 9)), int(rng.integers(3, 9)),
+              int(rng.integers(0, z - 3)), int(rng.integers(1, 4)))
+             for _ in range(6)]
+    for f in range(n):
+        occ = np.zeros(ZYX, bool)
+        for k, (x0, y0, w, h, z0, d) in enumerate(boxes):
+            w = w + f if k == 0 else w
+            occ[z0:z0 + d, y0 + f // 2:y0 + f // 2 + h, x0 + f:x0 + f + w] = 1
+        occ |= rng.random(ZYX) < 0.01
+        yield occ
+
+
+GROUPING_GRIDS = ("scene0", "scene1", "scene2", "scene3", "scene4", "empty",
+                  "single_cells", "edges", "many_components",
+                  "objects_folded", "labels_at_capacity")
+
+
+def grouping_grid(name):
+    """(occupancy ``[Z, Y, X]`` bool, max_labels, max_objects) of a named
+    case of the foreground grouping and the object assembly: the frames of
+    :func:`mapping_scene`, and edge cases on its grid."""
+    if name.startswith("scene"):
+        return list(mapping_scene())[int(name[5:])], 64, 32
+    occ = np.zeros(ZYX, bool)
+    if name == "single_cells":      # one-cell objects, never in one column
+        occ[::2, 1::6, 1::6] = True  # of adjacent layers
+    elif name == "edges":           # objects along all four edges, corners
+        occ[0, 0, :] = occ[1, -1, 1:-1] = True
+        occ[2, 1:-1, 0] = occ[3, :, -1] = True
+        occ[4, [0, 0, -1, -1], [0, -1, 0, -1]] = True
+        occ[6, [0, -1], :] = occ[6, :, [0, -1]] = True
+    elif name == "many_components":  # one object, 238 components a layer
+        occ[0, 2:-2, 2:-2] = True
+        occ[1:3, 3:-3:2, 3:-3:3] = True
+        return occ, 256, 32
+    elif name == "objects_folded":  # 120 merged objects, 4 stats slots
+        occ[1:3, ::4, ::4] = True
+        return occ, 64, 4
+    elif name == "labels_at_capacity":  # 480 components, 16 labels
+        occ[2, ::2, ::2] = True
+        occ[4, 5:9, 5:30] = True
+        return occ, 16, 32
+    elif name != "empty":
+        raise KeyError(name)
+    return occ, 64, 32
+
+
+def node_grid(seed=1234, frame=9):
+    """The node cell's occupancy after ``frame`` (``hafen_node.stream``,
+    ``portbench/reference/fusion.py``'s history, on the card) as a
+    ``[Z, Y, X]`` bool CPU tensor, its labels a layer and objects."""
+    if str(ROOT / "portbench") not in sys.path:
+        sys.path.append(str(ROOT / "portbench"))
+    from pb import spec
+    from pb.scene import Scene
+    from reference.fusion import Reference
+    cell = spec.cell("hafen_node.stream")
+    cfg = cell.config["fusion"]
+    ref = Reference(cfg, Scene.for_cell(seed, cell, "cuda"), "cuda")
+    occ = (ref.history(frame) > 0).reshape(ref.grid.size[::-1]).cpu()
+    return occ, cfg["cc_max_labels_per_layer"], cfg["max_objects"]
+
+
+def _group_case(name):
+    if name == "node":
+        return node_grid()
+    if name in SEGMENT_GRIDS:
+        occ, lab, objs = _segment_grid(name)
+    else:
+        occ, lab, objs = grouping_grid(name)
+    return torch.from_numpy(occ), lab, objs
+
+
+@pytest.mark.parametrize("name", ("node",) + GROUPING_GRIDS + (
+    "bench", "spiral", "full", "empty", "labels_folded", "objects_folded",
+    "ragged"))
+def test_group_kernels_equal_twin(dev, name):
+    """The foreground grouping on the card (csrc/group.cu) against its
+    plain twin on the card, counts and every row they size bit for bit, on
+    the node cell's scene, the CPU tests' grids and the segmentation
+    chain's edge cases; its launches a call by its counter and, on the
+    node's grid, by the profiler (the kernels and one memset). On the
+    node's grid and the scene's frames the host geometry over the card's
+    grouping equals the native assembly over the labels, and
+    ``build_objects`` with it equals ``build_objects`` without (a detail
+    mask keeping two objects in three)."""
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping import segmentation
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping.objects import (
+        build_objects)
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+    occ, lab, objs = _group_case(name)
+    seg = segmentation.segment(occ.to(dev), lab, objs)
+    z = occ.shape[0]
+    launches = segmentation.group_launches_per_call(z, lab)
+    before = segmentation.group_launches
+    got = segmentation.group_foreground(seg)
+    torch.cuda.synchronize()
+    assert segmentation.group_launches - before == launches
+    ref = segmentation.group_foreground_plain(seg)
+    assert torch.equal(got.counts.cpu(), ref.counts.cpu())
+    fg, nc = ref.counts.tolist()
+    nm = int(seg.num_merged)
+    used = segmentation.group_rows_used(fg, nc, nm, z)
+    assert torch.equal(got.rows[:used].cpu(), ref.rows[:used].cpu())
+    # the cells of merged ids in [1, M): the occupied ones, and a layer's
+    # background where no column joins it to the layer below (spiral)
+    mm = seg.merged_map
+    assert fg == int(((mm >= 1) & (mm < nm)).sum()) >= int(occ.sum())
+    if name == "node":
+        assert launches == 8 and nm > 3 and fg > 1000
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        acts = 0
+        for _ in range(3):      # the fullest of three traces
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                segmentation.group_foreground(seg)
+                torch.cuda.synchronize()
+            acts = max(acts, sum(ev.device_type == DeviceType.CUDA
+                                 for ev in prof.events()))
+        assert acts == launches + 1
+    if name != "node" and not name.startswith("scene"):
+        return
+    grouping = segmentation.grouping_arrays(
+        fg, nc, nm, z, got.rows[:used].cpu().numpy())
+    labels = seg.labels.cpu().numpy().astype(np.uint16)
+    mol = seg.merged_of_label.cpu().numpy()
+    cs, lo = (0.1, 0.1), (-20.0, -20.0)
+    assert_same(native.assemble_objects(labels, mol, nm, cs, lo),
+                native.assemble_grouped(labels, grouping, nm, cs, lo),
+                "assembly")
+    from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
+    from ros_gpu_depthmap_fusion_tpu_torch.core.grid import VoxelGrid
+    zz, yy, xx = occ.shape
+    grid = VoxelGrid.from_config(FusionConfig(
+        voxel_min=(0.0, 0.0, 0.0), voxel_max=(xx * 0.1, yy * 0.1, zz * 0.2),
+        voxel_size=(0.1, 0.1, 0.2)))
+    kw = dict(labels=labels, num_labels=seg.num_labels.cpu().numpy(),
+              merged_of_label=mol, num_merged=nm,
+              voxel_count=seg.voxel_count.cpu().numpy(),
+              centroid=seg.centroid.cpu().numpy(),
+              vmin=seg.vmin.cpu().numpy(), vmax=seg.vmax.cpu().numpy(),
+              grid=grid, detail_mask=np.arange(nm) % 3 != 1)
+    assert_same(build_objects(**kw), build_objects(grouping=grouping, **kw),
+                "objects")
+
+
 def _mapping_rig(emit_u8):
     from ros_gpu_depthmap_fusion_tpu_torch.core.config import FusionConfig
     return FusionConfig(

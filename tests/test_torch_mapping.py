@@ -48,7 +48,8 @@ from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (  # noqa: E402
 from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import (  # noqa: E402
     occupancy_bitmap, occupancy_bitmap_sparse)
 
-from test_torch_cuda import assert_same  # noqa: E402
+from test_torch_cuda import (  # noqa: E402
+    GROUPING_GRIDS, ZYX, assert_same, grouping_grid, mapping_scene as scene)
 
 
 @pytest.fixture
@@ -241,7 +242,6 @@ def test_segment_matches_native(need_native, name):
 
 # --- objects + tracking ----------------------------------------------------
 
-ZYX = (7, 40, 48)
 CELL = (0.125, 0.125, 0.25)
 
 
@@ -252,24 +252,6 @@ def map_kw(**kw):
                 voxel_size=CELL, cc_max_labels_per_layer=64, max_objects=32)
     base.update(kw)
     return base
-
-
-def scene(n=5, seed=5):
-    """``n`` frames of ``[Z, Y, X]`` occupancy: boxes drifting a cell a
-    frame, one growing, plus fresh speckle."""
-    rng = np.random.default_rng(seed)
-    z, y, x = ZYX
-    boxes = [(int(rng.integers(0, x - 16)), int(rng.integers(0, y - 14)),
-              int(rng.integers(3, 9)), int(rng.integers(3, 9)),
-              int(rng.integers(0, z - 3)), int(rng.integers(1, 4)))
-             for _ in range(6)]
-    for f in range(n):
-        occ = np.zeros(ZYX, bool)
-        for k, (x0, y0, w, h, z0, d) in enumerate(boxes):
-            w = w + f if k == 0 else w
-            occ[z0:z0 + d, y0 + f // 2:y0 + f // 2 + h, x0 + f:x0 + f + w] = 1
-        occ |= rng.random(ZYX) < 0.01
-        yield occ
 
 
 @pytest.mark.parametrize("detail", [False, True])
@@ -299,6 +281,63 @@ def test_objects_and_tracks_match_jax(need_native, detail):
         assert_same(js, ts, "stats")
         assert_same(jtracks, ttracks, "tracks")
     assert len(ttracks) > 0 and ttracks[0].age > 1
+
+
+@pytest.mark.parametrize("name", GROUPING_GRIDS)
+def test_grouped_assembly_equals_native(need_native, name, monkeypatch):
+    """The foreground grouping (its twin, from the device segmentation's
+    twin) and the host geometry over it (``native.assemble_grouped``) give
+    ``native.assemble_objects``' dict over the labels, array for array in
+    values and dtypes; ``build_objects`` with the grouping gives the
+    objects it gives without, field for field, with no detail mask and
+    with one that keeps two objects in three, and never calls the native
+    assembly. On the mapping tests' frames and the edge cases: an empty
+    grid, one-cell objects, objects on all four edges, one object of 238
+    components a layer, merged objects past ``max_objects`` and a layer
+    past ``cc_max_labels_per_layer``."""
+    occ, lab, objs = grouping_grid(name)
+    seg = tseg.segment(torch.from_numpy(occ), lab, objs)
+    groups = tseg.group_foreground(seg)
+    fg, nc = groups.counts.tolist()
+    nm, z = int(seg.num_merged), occ.shape[0]
+    used = tseg.group_rows_used(fg, nc, nm, z)
+    assert fg == int(occ.sum()) and not groups.rows[used:].any()
+    grouping = tseg.grouping_arrays(fg, nc, nm, z, groups.rows.numpy())
+    labels = seg.labels.numpy().astype(np.uint16)
+    mol = seg.merged_of_label.numpy()
+    grid = TGrid.from_config(TCfg(**map_kw()))
+    at = (grid.cell_size[:2], grid.lower[:2])
+    assert_same(tnative.assemble_objects(labels, mol, nm, *at),
+                tnative.assemble_grouped(labels, grouping, nm, *at),
+                "assembly")
+    kw = dict(labels=labels, num_labels=seg.num_labels.numpy(),
+              merged_of_label=mol, num_merged=nm,
+              voxel_count=seg.voxel_count.numpy(),
+              centroid=seg.centroid.numpy(), vmin=seg.vmin.numpy(),
+              vmax=seg.vmax.numpy(), grid=grid)
+
+    def no_native(*a, **k):
+        raise AssertionError("the grouped path called the native assembly")
+    for mask in (None, np.arange(nm) % 3 != 1):
+        want = tobj.build_objects(detail_mask=mask, **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(tnative, "assemble_objects", no_native)
+            got = tobj.build_objects(detail_mask=mask, grouping=grouping,
+                                     **kw)
+        assert_same(want, got, f"objects, mask {mask is not None}")
+    comps_z = grouping["comps"][:, 0]
+    if name == "empty":
+        assert nm == 1 and fg == nc == 0
+    elif name == "single_cells":
+        assert nm - 1 == nc == fg
+    elif name == "many_components":
+        assert nm == 2 and (comps_z == 1).sum() == 238
+    elif name == "objects_folded":
+        assert nm > objs
+    elif name == "labels_at_capacity":
+        assert int(seg.num_labels[2]) == lab and (comps_z == 2).sum() == 15
+    else:
+        assert nm > 2 and nc > nm
 
 
 def test_native_labeling_and_contours_match_jax(need_native):

@@ -414,15 +414,23 @@ def mapping_pipeline(backend, device="cpu", **kw):
 def test_mapping_spans_and_counters(need_native, backend, monkeypatch):
     """Each mapping span per cycle, ``process`` filed under its frame; the
     counters equal the cycles' own results: merged objects, iterations of
-    the device's fixpoint loops, live tracks."""
-    iters = []
-    segment = mapmod.segment
+    the device's fixpoint loops, live tracks, and the cycles built from
+    the device's foreground grouping (every device-backend cycle, no
+    host-backend one) with the grouping's rows."""
+    iters, rows = [], []
+    segment, group = mapmod.segment, mapmod.group_foreground
 
     def spy(*a, **k):
         seg = segment(*a, **k)
         iters.append(seg.iterations)
         return seg
+
+    def group_spy(seg):
+        groups = group(seg)
+        rows.append(int(groups.counts[0]))
+        return groups
     monkeypatch.setattr(mapmod, "segment", spy)
+    monkeypatch.setattr(mapmod, "group_foreground", group_spy)
     pipe = mapping_pipeline(backend)
     profiling.enable()
     results = [pipe.process(occ, frame=f)
@@ -443,8 +451,12 @@ def test_mapping_spans_and_counters(need_native, backend, monkeypatch):
             i[0] for i in iters) >= 4 * 2
         assert c["fusion.mapping.merge_iterations"] == sum(
             i[1] for i in iters)
+        assert c["fusion.mapping.grouped_cycles"] == 4
+        assert c["fusion.mapping.foreground_cells"] == sum(rows) > 4 * 40
     else:
         assert not iters and "fusion.mapping.cc_iterations" not in c
+        assert not rows and "fusion.mapping.grouped_cycles" not in c
+        assert "fusion.mapping.foreground_cells" not in c
     assert "fusion.mapping.tracks" in profiling.report(2)
 
 
@@ -481,7 +493,8 @@ def test_segment_kernel_cycles(need_native, device):
     """The device backend's cycles on the card each run the CUDA chain:
     ``fusion.mapping.segment_kernel_cycles`` equals
     ``fusion.mapping.cycles``, and the chain adds no fixpoint iterations.
-    On the CPU the twin runs, and the counter is absent."""
+    On the CPU the twin runs, and the counter is absent. On both, every
+    cycle builds its objects from the foreground grouping."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     pipe = mapping_pipeline("device", device)
@@ -490,6 +503,7 @@ def test_segment_kernel_cycles(need_native, device):
         pipe.process(occ.to(device), frame=f)
     c = profiling.snapshot()["counters"]
     assert c["fusion.mapping.cycles"] == 4
+    assert c["fusion.mapping.grouped_cycles"] == 4
     if device == "cuda":
         assert c["fusion.mapping.segment_kernel_cycles"] == 4
         assert c["fusion.mapping.cc_iterations"] == 0
