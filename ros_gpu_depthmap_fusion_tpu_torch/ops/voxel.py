@@ -7,7 +7,8 @@
 - ``uints_to_chars`` -> :func:`occupancy_to_u8`; the per-layer views ->
   :func:`occupancy_layers`.
 - the mapping consumer's payloads -> :func:`occupancy_bitmap` (8 cells a
-  byte) and :func:`occupancy_bitmap_sparse` (nonzero 128-bit blocks).
+  byte) and :func:`occupancy_bitmap_sparse` (nonzero 128-bit blocks);
+  :func:`unpack_bitmap` inverts the first on the bitmap's device.
 """
 
 from __future__ import annotations
@@ -64,6 +65,14 @@ def occupancy_bitmap(grid: torch.Tensor) -> torch.Tensor:
     weights = const((1, 2, 4, 8, 16, 32, 64, 128), grid.device,
                     torch.int32)
     return (bits.reshape(-1, 8) * weights).sum(-1).to(torch.uint8)
+
+
+def unpack_bitmap(packed: torch.Tensor, count: int) -> torch.Tensor:
+    """The first ``count`` cells (u8, 0 or 1) of a bitmap packed by
+    :func:`occupancy_bitmap` (of any shape, read flat), on its device:
+    ``np.unpackbits(packed, bitorder="little", count=count)``."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    return ((packed.reshape(-1, 1) >> shifts) & 1).reshape(-1)[:count]
 
 
 def occupancy_bitmap_sparse(grid: torch.Tensor, capacity: int,

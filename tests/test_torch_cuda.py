@@ -30,7 +30,9 @@ CPU parity tests of the mapping and the component, which import it.
 
 import dataclasses
 import hashlib
+import json
 import sys
+import time
 import zlib
 from pathlib import Path
 
@@ -59,12 +61,19 @@ def assert_same(a, b, path="result"):
     """Recursive equality of nested results (a JAX-package value and its
     port counterpart, or two port values: dataclasses, NamedTuples, plain
     objects, arrays): same class names, same fields (the second value's,
-    for dataclasses), arrays of equal dtype and shape bit for bit, floats
-    exactly equal."""
+    for dataclasses; for NamedTuples, the first value's fields lead the
+    second's, which may go on past them, as the port's ``MappingResult.dt``
+    goes on past the JAX package's, and the first value's are compared),
+    arrays of equal dtype and shape bit for bit, floats exactly equal."""
     assert type(a).__name__ == type(b).__name__, (path, type(a), type(b))
     if isinstance(a, np.ndarray):
         assert a.dtype == b.dtype and a.shape == b.shape, (path, a, b)
         np.testing.assert_array_equal(a, b, err_msg=path)
+    elif isinstance(a, tuple) and hasattr(a, "_fields"):
+        assert b._fields[:len(a._fields)] == a._fields, (
+            path, a._fields, b._fields)
+        for n in a._fields:
+            assert_same(getattr(a, n), getattr(b, n), f"{path}.{n}")
     elif isinstance(a, (list, tuple)):
         assert len(a) == len(b), path
         for k, (x, y) in enumerate(zip(a, b)):
@@ -967,6 +976,117 @@ def test_mapping_sparse_on_card_equals_cpu(dev, backend):
     for k, (a, b) in enumerate(zip(*results)):
         assert_same(b, a, f"cycle {k}")
     assert results[0][-1].num_merged >= 2
+
+
+def _sparse_of(out):
+    """A frame's sparse occupancy with its dense fallback (as
+    ``chip_smoke.py`` and ``bench.py`` hand it to the mapping worker)."""
+    return (out.occupancy_sparse_idx, out.occupancy_sparse_words,
+            out.occupancy_sparse_count, out.occupancy_sparse_true,
+            out.occupancy_bits)
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_mapping_worker_on_card_equals_cpu(dev, backend, tmp_path):
+    """``AsyncMappingWorker(packed=True)`` over a small pipelined engine on
+    the card, every frame's sparse tuple submitted with ``block=True``,
+    against a CPU engine's synchronous ``process_sparse`` at the worker's
+    dts: objects and tracks bit for bit, the device backend's submissions
+    left on the card (``OnDevice``) and the host backend's prefetched as
+    before. The step hands out fresh outputs, not views of buffers it
+    keeps; and cycles run alone under the profiler make no host-to-device
+    copy."""
+    from ros_gpu_depthmap_fusion_tpu_torch.core.camera import (
+        PinholeIntrinsics)
+    from ros_gpu_depthmap_fusion_tpu_torch.mapping import pipeline as mp
+    from ros_gpu_depthmap_fusion_tpu_torch.pipeline.engine import (
+        FusionEngine)
+    from ros_gpu_depthmap_fusion_tpu_torch.utils import native
+    if backend == "host" and not native.available():
+        pytest.skip("native library not built")
+    cfg = _mapping_rig(False).replace(segmentation_backend=backend)
+    card, cpu = (FusionEngine(cfg, device=d, pipeline_depth=1,
+                              enable_mapping=True) for d in (dev, "cpu"))
+    assert (card.mapping.card_stream is not None) == (backend == "device")
+    handed = []
+    hand_off = mp.AsyncMappingWorker._hand_off
+
+    def spy(self, item):
+        sub = hand_off(self, item)
+        handed.append(type(sub).__name__)
+        return sub
+    w = mp.AsyncMappingWorker(card.mapping, packed=True)
+    w._hand_off = spy.__get__(w)
+    intr = PinholeIntrinsics.default_for(32, 24)
+    eye = np.eye(4, dtype=np.float32)
+    rng = np.random.default_rng(5)
+    u = np.arange(32)[None, :] + np.zeros((24, 1))
+    t = np.linspace(0, np.pi, 60)
+    arc = np.stack([0.8 * np.cos(t), 0.8 * np.sin(t),
+                    1 + 0.1 * np.sin(5 * t)], -1).astype(np.float32)
+
+    def wait_cycles(n):
+        t0 = time.monotonic()
+        while w.cycles < n and time.monotonic() - t0 < 30:
+            time.sleep(0.002)
+        assert w.cycles == n
+
+    prev, cycles = None, 0
+    try:
+        for f in range(7):
+            d = (2000 + 40 * u + 6 * rng.standard_normal((2, 24, 32))) \
+                .astype(np.uint16)
+            d[:, 5:12, 3 * f:3 * f + 8] -= 600
+            outs = []
+            for e in (card, cpu):
+                for i in range(2):
+                    e.add_depthmap(i, d[i], intr, eye, eye)
+                e.add_point_sequence(arc, sec=1, nsec=f * 33000000,
+                                     tf_move=eye)
+                outs.append(e.process(1.0 + f / 30.0))
+            out, ref_out = outs
+            if out is None:
+                continue
+            if prev is not None:
+                for a, b in zip(_sparse_of(out), _sparse_of(prev)):
+                    assert a.data_ptr() != b.data_ptr()
+            w.submit(_sparse_of(out), block=True, timeout=30)
+            cycles += 1
+            wait_cycles(cycles)
+            res = w.latest()
+            assert_same(cpu.mapping.process_sparse(_sparse_of(ref_out),
+                                                   dt=res.dt),
+                        res, f"cycle {cycles}")
+            prev = out
+            time.sleep(0.01)
+        assert res.num_merged >= 2 and res.dt > cfg.tracking_dt
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                w.submit(_sparse_of(prev), block=True, timeout=30)
+                cycles += 1
+            wait_cycles(cycles)
+            torch.cuda.synchronize()
+        path = tmp_path / "trace.json"
+        prof.export_chrome_trace(str(path))
+    finally:
+        w.close()
+        card.close()
+        cpu.close()
+    with open(path) as fh:
+        events = json.load(fh)
+    if isinstance(events, dict):
+        events = events["traceEvents"]
+    dev_ev = [e for e in events if e.get("ph") == "X" and str(
+        e.get("cat", "")).lower() in ("kernel", "gpu_memcpy")]
+    assert [e["name"] for e in dev_ev if "HtoD" in e["name"]] == []
+    if backend == "device":
+        assert sum(1 for e in dev_ev if str(e["cat"]).lower()
+                   == "kernel") >= 3 * 8, "no cycle ran on the card"
+    assert handed == [("OnDevice" if backend == "device" else "HostCopy")
+                      ] * cycles
 
 
 def test_component_with_mapping_on_card_equals_cpu(dev):

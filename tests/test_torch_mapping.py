@@ -46,7 +46,7 @@ from ros_gpu_depthmap_fusion_tpu_torch.mapping import (  # noqa: E402
 from ros_gpu_depthmap_fusion_tpu_torch.mapping.pipeline import (  # noqa: E402
     AsyncMappingWorker, MappingPipeline)
 from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import (  # noqa: E402
-    occupancy_bitmap, occupancy_bitmap_sparse)
+    occupancy_bitmap, occupancy_bitmap_sparse, unpack_bitmap)
 
 from test_torch_cuda import (  # noqa: E402
     GROUPING_GRIDS, ZYX, assert_same, grouping_grid, mapping_scene as scene)
@@ -607,3 +607,104 @@ def test_async_worker_sparse_cycles_match_sync(need_native):
     finally:
         w.close()
     assert dts[0] == TCfg().tracking_dt and len(ref.tracks) > 0
+
+
+def test_async_worker_blocking_submit_maps_every_submission():
+    """``submit(block=True)`` waits for the slot: 60 submissions to a
+    worker slower than the loop are all mapped, in order, none replaced."""
+    pipe = _FakePipeline()
+    orig = pipe.process
+
+    def slow(occ, dt=None):
+        time.sleep(0.002)
+        return orig(occ, dt=dt)
+    pipe.process = slow
+    w = AsyncMappingWorker(pipe)
+    try:
+        for k in range(60):
+            w.submit(k, block=True, timeout=10)
+        _wait(lambda: w.cycles >= 60)
+    finally:
+        w.close()
+    assert pipe.seen == list(range(60)) and w.cycles == 60
+    assert pipe.dts[0] == _Cfg.tracking_dt
+    assert all(_Cfg.tracking_dt <= d <= AsyncMappingWorker.dt_max
+               for d in pipe.dts)
+
+
+def test_async_worker_blocking_submit_raises_while_it_waits():
+    """A blocked ``submit`` raises the worker's exception once the cycle
+    in progress fails, and ``TimeoutError`` when its time runs out."""
+    gate = threading.Event()
+    pipe = _FakePipeline(gate=gate)
+    w = AsyncMappingWorker(pipe)
+    try:
+        w.submit("a", block=True)
+        assert pipe.entered.wait(10)
+        w.submit("b", block=True)          # waits in the slot
+        t0 = time.monotonic()
+        with pytest.raises(TimeoutError):
+            w.submit("c", block=True, timeout=0.2)
+        assert 0.2 <= time.monotonic() - t0 < 5
+        pipe.fail = True
+        timer = threading.Timer(0.2, gate.set)
+        timer.start()
+        with pytest.raises(RuntimeError, match="cycle failed on a"):
+            w.submit("c", block=True, timeout=10)
+        timer.join(10)
+    finally:
+        gate.set()
+        with pytest.raises(RuntimeError, match="cycle failed on a"):
+            w.close()
+    assert not w._thread.is_alive() and pipe.seen == []
+
+
+def test_unpack_bitmap_inverts_the_packing():
+    rng = np.random.default_rng(3)
+    for n in (1, 7, 8, 9, 1000, 4099):
+        cells = (rng.random(n) < 0.3).astype(np.int32)
+        packed = occupancy_bitmap(torch.from_numpy(cells))
+        out = unpack_bitmap(packed, n)
+        assert out.dtype == torch.uint8
+        assert np.array_equal(out.numpy(), np.unpackbits(
+            packed.numpy(), bitorder="little", count=n))
+        assert np.array_equal(out.numpy(), cells)
+
+
+@pytest.mark.parametrize("entry", ["process_packed", "process_sparse"])
+def test_async_worker_results_equal_sync_cycles(need_native, entry):
+    """A device-backend worker fed with ``block=True``: every result,
+    its ``dt`` included, equals a synchronous pipeline's ``process_packed``
+    / ``process_sparse`` on the same bits with the same ``dt``."""
+    kw = map_kw(segmentation_backend="device")
+    grid = TGrid.from_config(TCfg(**kw))
+    pipe = MappingPipeline(TCfg(**kw), grid, "cpu")
+    ref = MappingPipeline(TCfg(**kw), grid, "cpu")
+    results = []
+    orig = getattr(pipe, entry)
+
+    def recording(occ, dt=None):
+        res = orig(occ, dt=dt)
+        results.append(res)
+        return res
+    setattr(pipe, entry, recording)
+    subs = []
+    for occ in scene(5):
+        _, bits, sparse = _inputs(occ, 4)
+        subs.append(bits if entry == "process_packed" else sparse)
+    w = AsyncMappingWorker(pipe, packed=True)
+    try:
+        for f, sub in enumerate(subs):
+            w.submit(sub, block=True, timeout=30)
+            _wait(lambda: w.cycles >= f + 1)
+            # the tracks are the pipeline's live list: compared before the
+            # next cycle moves them
+            res = results[f]
+            assert_same(res, getattr(ref, entry)(sub, dt=res.dt),
+                        f"cycle {f}")
+            time.sleep(0.05)
+    finally:
+        w.close()
+    assert len(results) == len(subs) and len(ref.tracks) > 0
+    assert results[0].dt == TCfg().tracking_dt
+    assert all(r.dt > TCfg().tracking_dt for r in results[1:])

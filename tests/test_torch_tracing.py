@@ -462,8 +462,9 @@ def test_mapping_spans_and_counters(need_native, backend, monkeypatch):
 
 def test_mapping_entry_points_count_one_cycle_each(need_native):
     """``process_packed`` and ``process_sparse`` through the device
-    backend, which segments the unpacked grid: one cycle, one span each,
-    and the copies to the host as ``fetch``."""
+    backend, which unpacks the bitmap on its device and segments the grid:
+    one cycle, one span each, the unpacking as ``unpack`` and the copies
+    to the host as ``fetch``."""
     from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import (
         occupancy_bitmap, occupancy_bitmap_sparse)
     pipe = mapping_pipeline("device")
@@ -475,16 +476,101 @@ def test_mapping_entry_points_count_one_cycle_each(need_native):
     assert snap["counters"]["fusion.mapping.cycles"] == 2
     assert snap["spans"]["fusion.mapping"][1] == 2
     assert snap["spans"]["fusion.mapping.segment"][1] == 2
-    # the packed bitmap; the sparse blocks, then the segmentation's results
-    assert snap["spans"]["fusion.mapping.fetch"][1] == 4
+    # the bitmap, then the one the sparse blocks rebuild on the host
+    assert snap["spans"]["fusion.mapping.unpack"][1] == 2
+    # the segmentation's results; the sparse blocks, then the results
+    assert snap["spans"]["fusion.mapping.fetch"][1] == 3
 
 
 def test_mapping_records_nothing_with_tracer_off(need_native):
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import occupancy_bitmap
     for backend in ("device", "host"):
         pipe = mapping_pipeline(backend)
         for occ in mapping_frames(2):
             pipe.process(occ, frame=0)
+        w = mapmod.AsyncMappingWorker(pipe, packed=True)
+        try:
+            for occ in mapping_frames(2):
+                w.submit(occupancy_bitmap(occ), block=True, timeout=30)
+            _wait_for(lambda: w.cycles >= 2)
+        finally:
+            w.close()
     assert profiling.snapshot() == {"spans": {}, "counters": {}}
+
+
+def _wait_for(pred, timeout=30.0):
+    t0 = time.monotonic()
+    while not pred() and time.monotonic() - t0 < timeout:
+        time.sleep(0.005)
+    assert pred()
+
+
+WORKER_SPANS = ("fusion.mapping.worker.submit", "fusion.mapping.worker.cycle")
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_mapping_worker_spans_counters_and_gauge(need_native, device):
+    """A device-backend worker fed packed bitmaps with ``block=True``: its
+    ``submit`` span (the submitting thread) and ``cycle`` span (the
+    worker's, the pipeline's cycle inside it) once a submission, every
+    submission mapped and none replaced, the gauge the latest cycle's dt
+    in us. Each cycle unpacks the bitmap on the device
+    (``fusion.mapping.unpack``) and copies only its results to the
+    host."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from ros_gpu_depthmap_fusion_tpu_torch.ops.voxel import occupancy_bitmap
+    pipe = mapping_pipeline("device", device)
+    w = mapmod.AsyncMappingWorker(pipe, packed=True)
+    profiling.enable()
+    try:
+        for occ in mapping_frames():
+            w.submit(occupancy_bitmap(occ.to(device)), block=True,
+                     timeout=30)
+        _wait_for(lambda: w.cycles >= 4)
+    finally:
+        w.close()
+    snap = profiling.snapshot()
+    for name in WORKER_SPANS + MAPPING_SPANS + ("fusion.mapping.unpack",):
+        assert snap["spans"][name][1] == 4, name
+    c = snap["counters"]
+    assert c["fusion.mapping.worker.submitted"] == 4
+    assert c["fusion.mapping.worker.cycles"] == 4
+    assert "fusion.mapping.worker.replaced" not in c
+    assert c["fusion.mapping.worker.dt_us"] == round(w.latest().dt * 1e6)
+    assert c["fusion.mapping.cycles"] == c["fusion.mapping.grouped_cycles"]
+
+
+def test_mapping_worker_counts_replacements():
+    """Drop-oldest: two submissions while a cycle runs, the first of them
+    replaced by the second; three submitted, one replaced, two cycles."""
+    gate, entered = threading.Event(), threading.Event()
+
+    class Gated:
+        cfg = FusionConfig()
+
+        def process(self, occ, dt=None):
+            entered.set()
+            assert gate.wait(10)
+            return occ
+
+    w = mapmod.AsyncMappingWorker(Gated())
+    profiling.enable()
+    try:
+        w.submit("a")
+        assert entered.wait(10)
+        w.submit("b")
+        w.submit("c")
+        gate.set()
+        _wait_for(lambda: w.cycles >= 2)
+    finally:
+        w.close()
+    c = profiling.snapshot()["counters"]
+    assert (c["fusion.mapping.worker.submitted"],
+            c["fusion.mapping.worker.replaced"],
+            c["fusion.mapping.worker.cycles"]) == (3, 1, 2)
+    assert w.latest() == "c"
 
 
 @pytest.mark.parametrize("device", [
